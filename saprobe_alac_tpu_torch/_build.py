@@ -1,10 +1,16 @@
-"""Build and load the hand-written CUDA kernels (csrc/) at first use.
+"""Build and load the port's native libraries at first use.
 
-The kernels are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface and loaded with ctypes.  The build is keyed on a
-content hash of the sources (git does not keep mtimes) and lands in
-``_build/`` beside this file.  A missing compiler or a failed build raises;
-nothing falls back to another path.
+Two shared libraries with a plain C interface, loaded with ctypes:
+
+- ``libalac_kernels.so``: the hand-written CUDA kernels (csrc/), compiled by
+  ``nvcc`` for ``sm_90a``;
+- ``libalac_host.so``: the repo's C++ host core (native/alac_core.cpp and
+  alac_encode.cpp), compiled by ``g++``; see ``native.py``.
+
+Each build is keyed on a content hash of its sources and its command (git
+does not keep mtimes), lands in ``_build/`` beside this file, and holds a
+file lock so concurrent processes build once.  A missing compiler or a
+failed build raises; nothing falls back to another path.
 
 Each kernel wrapper bumps its entry in the launch counters right where it
 launches, so a run can show which kernels its main path went through.
@@ -13,6 +19,7 @@ launches, so a run can show which kernels its main path went through.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -22,11 +29,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("alac_int.cuh", "element_kernel.cu", "lpc_kernel.cu")
 _OUT = _PKG / "_build"
-_SO = _OUT / "libalac_kernels.so"
-_HASH = _OUT / "libalac_kernels.sha256"
-_LOG = _OUT / "build.log"
+_KERNEL_SOURCES = ("alac_int.cuh", "element_kernel.cu", "lpc_kernel.cu")
 
 _lock = threading.Lock()
 _lib = None
@@ -48,11 +52,27 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
-def _digest() -> str:
-    h = hashlib.sha256()
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    return h.hexdigest()
+def build_library(stem: str, sources: list[Path], argv) -> Path:
+    """``_build/<stem>.so``, rebuilt by ``argv(out_path)`` when the sources
+    or the command changed.  The compiler's output goes to ``<stem>.log``."""
+    _OUT.mkdir(parents=True, exist_ok=True)
+    so, stamp, log = (_OUT / f"{stem}{ext}" for ext in (".so", ".sha256", ".log"))
+    h = hashlib.sha256(" ".join(argv(so)).encode())
+    for src in sources:
+        h.update(src.read_bytes())
+    digest = h.hexdigest()
+    with open(_OUT / f"{stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists() and stamp.exists() and stamp.read_text() == digest:
+            return so
+        tmp = _OUT / f"{stem}.{os.getpid()}.tmp.so"
+        proc = subprocess.run(argv(tmp), capture_output=True, text=True, timeout=600)
+        log.write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {stem} failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)
+        stamp.write_text(digest)
+    return so
 
 
 def _nvcc() -> str:
@@ -66,26 +86,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _build() -> None:
-    _OUT.mkdir(parents=True, exist_ok=True)
-    tmp = _SO.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [
+def _kernels_argv(out: Path) -> list[str]:
+    return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp),
+        "-o", str(out),
         str(_CSRC / "element_kernel.cu"), str(_CSRC / "lpc_kernel.cu"),
     ]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    _LOG.write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, _SO)
-    _HASH.write_text(_digest())
 
 
 def build_log() -> str:
-    """The compiler's output of the last build (register and spill report)."""
-    return _LOG.read_text() if _LOG.exists() else ""
+    """The compiler's output of the last kernel build (register and spill
+    report)."""
+    log = _OUT / "libalac_kernels.log"
+    return log.read_text() if log.exists() else ""
 
 
 def load():
@@ -94,10 +108,10 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        fresh = _SO.exists() and _HASH.exists() and _HASH.read_text() == _digest()
-        if not fresh:
-            _build()
-        lib = ctypes.CDLL(str(_SO))
+        so = build_library(
+            "libalac_kernels", [_CSRC / n for n in _KERNEL_SOURCES], _kernels_argv
+        )
+        lib = ctypes.CDLL(str(so))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.alac_element_launch.restype = I
         lib.alac_element_launch.argtypes = [

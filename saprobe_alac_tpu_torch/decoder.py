@@ -9,10 +9,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
-from saprobe_alac_tpu.config import PacketConfig
-from saprobe_alac_tpu.errors import UnsupportedBitDepth
-from saprobe_alac_tpu.formats import ALAC_BIT_DEPTHS, PCMFormat
-
+from .config import PacketConfig
 from .ops.batch import TorchBatchDecoder
 
 
@@ -20,18 +17,8 @@ class BatchDecoder:
     """Batched packet decoding for one PacketConfig on one device."""
 
     def __init__(self, config: PacketConfig, device):
-        if config.bit_depth not in ALAC_BIT_DEPTHS:
-            raise UnsupportedBitDepth(f"unsupported bit depth {config.bit_depth}")
         self.config = config
-        self._format = PCMFormat(
-            sample_rate=config.sample_rate,
-            bit_depth=config.bit_depth,
-            channels=config.num_channels,
-        )
         self.impl = TorchBatchDecoder(config, device)
-
-    def format(self) -> PCMFormat:
-        return self._format
 
     def decode_packets(self, packets: Sequence[bytes]) -> list[bytes]:
         """Decode a batch of packets; returns per-packet PCM byte strings."""

@@ -5,7 +5,9 @@ single-slot slice: 16-bit streams with C in {1, 2}.  The device is explicit:
 a CUDA device launches the kernels, the CPU runs their plain versions, and
 nothing moves between the two by itself.  Packets that trip device-side
 validation (any nonzero ERR_* code) are decoded by the exact host path, the
-JAX package's error contract (batch.py:32-51, 380-390).
+JAX package's error contract (batch.py:32-51, 380-390).  Staging and the
+host path run on the repo's C++ host core (``..native``); only a packet the
+core rejects reaches the JAX package's scalar oracle, which is pure Python.
 """
 
 from __future__ import annotations
@@ -15,28 +17,23 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from saprobe_alac_tpu.codec import decode_packet as scalar_decode_packet
-from saprobe_alac_tpu.config import PacketConfig
-from saprobe_alac_tpu.ops.bitpack import pack_packets_device_swap
-
+from .. import native
+from ..config import PacketConfig
 from .epilogue import finish_packed
 from .lpc import lpc_batch
 from .walk import ERR_NONE, walk_batch
 
 
 def _host_decode(config: PacketConfig, packets: Sequence[bytes]) -> list[bytes]:
-    """Host decode: the threaded C++ core when built, else the Python
-    oracle; packets the core rejects re-run through the oracle so malformed
-    input raises the oracle's typed exception."""
-    from saprobe_alac_tpu import native
+    """Host decode by the threaded C++ core; packets the core rejects re-run
+    through the scalar oracle so malformed input raises its typed error."""
+    out, lens, errs = native.decode_batch(config, packets)
+    result = [out[i, : lens[i]].tobytes() for i in range(len(packets))]
+    for i in np.flatnonzero(errs):
+        from saprobe_alac_tpu.codec import decode_packet
 
-    if native.available():
-        out, lens, errs = native.decode_batch(config, list(packets))
-        return [
-            scalar_decode_packet(config, p)[0] if errs[i] != 0 else out[i, : lens[i]].tobytes()
-            for i, p in enumerate(packets)
-        ]
-    return [scalar_decode_packet(config, p)[0] for p in packets]
+        result[i] = decode_packet(config, packets[i])[0]
+    return result
 
 
 def _bucket(n: int, floor: int = 8) -> int:
@@ -48,13 +45,6 @@ def _bucket(n: int, floor: int = 8) -> int:
         if n <= b + b // 2:
             return b + b // 2
         b *= 2
-
-
-def _byteswap_words(words: torch.Tensor) -> torch.Tensor:
-    """LE <-> BE byteswap of each 32-bit word."""
-    return words.view(torch.uint8).reshape(*words.shape, 4).flip(-1).reshape(
-        words.shape[0], -1
-    ).view(torch.int32)
 
 
 class TorchBatchDecoder:
@@ -77,33 +67,39 @@ class TorchBatchDecoder:
         self._scalar_only = config.kb == 0 or not 1 <= config.frame_length <= (1 << 16)
         #: Packets of the last finished batch that the host path decoded.
         self.last_fallbacks = 0
+        self._pinned = None  # download buffer, reused across batches
 
     def _stage(self, packets: Sequence[bytes]):
-        """Pack and pad to bucketed shapes: (words, size_bits, swapped)."""
-        words_np, sizes_np, swapped = pack_packets_device_swap(list(packets))
-        B = len(packets)
-        words = np.zeros((_bucket(B), _bucket(words_np.shape[1], floor=16)), np.int32)
-        words[:B, : words_np.shape[1]] = words_np
-        sizes = np.zeros(words.shape[0], np.int32)
-        sizes[:B] = sizes_np
-        return words, sizes, swapped
+        """Pack to bucketed shapes and upload: (words (B, W), size_bits (B,))
+        on the device, words big-endian as the walk reads them."""
+        longest = max(len(p) for p in packets)
+        rows = _bucket(len(packets))
+        width = _bucket((longest + 3) // 4 + native.GUARD_WORDS, floor=16)
+        sizes = np.zeros(rows, np.int32)
+        sizes[: len(packets)] = [len(p) * 8 for p in packets]
+        words = native.pack_packets(packets, rows, width)
+        return torch.from_numpy(words).to(self.device), torch.from_numpy(sizes).to(self.device)
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+    def _download(self, t: torch.Tensor) -> np.ndarray:
+        """Device -> host through one pinned buffer reused across batches: on
+        an H100 a pageable copy of a B=2048 F=4096 stereo batch (32 MiB) took
+        14 ms, a pinned one 0.65 ms.  The returned view is valid until the
+        next download, so a decoder is not to be shared between threads."""
+        if t.device.type == "cpu":
+            return t.numpy()
+        nbytes = t.numel() * t.element_size()
+        if self._pinned is None or self._pinned.numel() < nbytes:
+            self._pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        buf = self._pinned[:nbytes].view(t.dtype).view(t.shape)
+        buf.copy_(t)
+        return buf.numpy()
 
     def decode_async(self, packets: Sequence[bytes], taps: int = 9):
         """Dispatch a batch; returns device tensors (packed, err, ns, wide)
         without waiting for the device.  ``taps=9`` serves orders up to 8;
         finish_async re-runs at 32 taps when ``wide`` flags an order 9..30."""
         cfg = self.config
-        words_np, sizes_np, swapped = self._stage(packets)
-        words = self._upload(words_np)
-        sizes = self._upload(sizes_np)
-        if not swapped:
-            words = _byteswap_words(words)
+        words, sizes = self._stage(packets)
         F, C = cfg.frame_length, cfg.num_channels
         w = walk_batch(
             words, sizes, F=F, C=C, depth=cfg.bit_depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb
@@ -137,7 +133,7 @@ class TorchBatchDecoder:
         packed, err, ns, wide = handle
         if bool(wide[: len(packets)].any()):
             packed, err, ns, _ = self.decode_async(packets, taps=32)
-        packed = packed.cpu().numpy()
+        packed = self._download(packed)
         err = err.cpu().numpy()
         ns = ns.cpu().numpy()
         fb_idx = [i for i in range(len(packets)) if err[i] != ERR_NONE]

@@ -18,8 +18,6 @@ from typing import NamedTuple
 
 import torch
 
-from saprobe_alac_tpu.codec.element import CHANNEL_LAYOUT_OFFSETS
-
 from .walk_kernel import (  # noqa: F401  (ERR_* re-exported)
     ERR_ELEMENT,
     ERR_HEADER,
@@ -129,7 +127,6 @@ def walk_batch(words, size_bits, *, F, C, depth, pb, mb, kb) -> WalkResult:
 
     escf = is_escape.to(i32)
     cb = torch.where(is_comp, cb_comp, esc_cb)
-    out_u = CHANNEL_LAYOUT_OFFSETS[C - 1][0]
     coefs = torch.zeros((B, C, 32), dtype=i32, device=dev)
     coefs[:, 0] = torch.where(is_comp[:, None], meta[M_COEFS_U:M_COEFS_U + 32].T, 0)
     if C > 1:
@@ -157,6 +154,8 @@ def walk_batch(words, size_bits, *, F, C, depth, pb, mb, kb) -> WalkResult:
         mixbits=cols(torch.where(pair_comp, meta[M_MIXBITS], 0)),
         mixres=cols(torch.where(pair_comp, meta[M_MIXRES], 0)),
         role=cols(is_cpe.to(i32), torch.full_like(escf, 2)),
-        out_chan=cols(torch.full_like(escf, out_u), torch.full_like(escf, out_u + 1)),
+        # The one element fills output channels 0 (and 1): the first entry of
+        # the mono and stereo layouts (codec/element.py CHANNEL_LAYOUT_OFFSETS).
+        out_chan=cols(torch.zeros_like(escf), torch.ones_like(escf)),
         filled=cols(torch.ones_like(escf)),
     )

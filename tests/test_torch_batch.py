@@ -4,7 +4,7 @@
 package's `JaxBatchDecoder`; corrupted packets give the oracle's bytes or
 its typed error; the host routes, the unsupported configurations and the
 CUDA device check behave as specified; and the port decodes a batch with
-JAX blocked from import.
+JAX and the JAX package blocked from import.
 """
 
 import os
@@ -107,26 +107,28 @@ def test_cuda_device_raises_without_cuda():
 
 
 def test_port_decodes_with_jax_blocked():
+    """With JAX and the JAX package both blocked, the port encodes fixtures
+    with its host core and decodes a clean batch to the source PCM."""
     script = textwrap.dedent(
         f"""
         import sys
         sys.modules["jax"] = None
+        sys.modules["saprobe_alac_tpu"] = None
         sys.path.insert(0, {REPO!r})
         import numpy as np
-        from saprobe_alac_tpu.codec import decode_packet
-        from saprobe_alac_tpu.config import PacketConfig
-        from saprobe_alac_tpu.encoder import EncoderSpec, encode_packets
         import saprobe_alac_tpu_torch as port
-        cfg = PacketConfig(frame_length=64, bit_depth=16, num_channels=2, pb=40,
-                           mb=10, kb=14, max_run=255, max_frame_bytes=0,
-                           avg_bit_rate=0, sample_rate=44100)
+        from saprobe_alac_tpu_torch import native
+        cfg = port.PacketConfig(frame_length=64, bit_depth=16, num_channels=2, pb=40,
+                                mb=10, kb=14, max_run=255, max_frame_bytes=0,
+                                avg_bit_rate=0, sample_rate=44100)
         t = np.arange(200)
         pcm = np.stack([(8000 * np.sin(t / 7)).astype(np.int64),
                         (6000 * np.sin(t / 5)).astype(np.int64)], 1)
-        pkts = encode_packets(cfg, EncoderSpec(), pcm)
-        got = port.BatchDecoder(cfg, "cpu").decode_packets(pkts)
-        assert got == [decode_packet(cfg, p)[0] for p in pkts]
-        assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
+        pkts = native.encode_packets(cfg, pcm)
+        dec = port.BatchDecoder(cfg, "cpu")
+        got = dec.decode_packets(pkts)
+        assert b"".join(got) == pcm.astype("<i2").tobytes()
+        assert dec.impl.last_fallbacks == 0
         print("OK")
         """
     )
@@ -137,15 +139,3 @@ def test_port_decodes_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
-
-
-def test_device_byteswap_matches_packer():
-    """Words the numpy packer leaves little-endian are swapped on the
-    device to the big-endian words pack_packets returns."""
-    from saprobe_alac_tpu.ops.bitpack import pack_packets
-    from saprobe_alac_tpu_torch.ops.batch import _byteswap_words
-
-    _, pkts = _pkts(2, seed=8)
-    big, _ = pack_packets(pkts)
-    little = big.view(np.uint32).byteswap().view(np.int32)
-    assert np.array_equal(_byteswap_words(torch.from_numpy(little)).numpy(), big)
