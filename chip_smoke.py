@@ -20,10 +20,29 @@ Phases, one line each (any failure raises and exits non-zero):
   5. each kernel against its plain version at the shapes phase 4 gave it
      (the element kernel on the B=2048 batch, the LPC at 9 taps on its 4096
      lanes), tolerance 0; kernel times by CUDA events (median of warm runs),
-     each plain version's once.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Neither JAX nor the JAX package
-saprobe_alac_tpu is importable here: both are blocked before any import.
+     each plain version's once;
+  6. the raw reader (shift region) against its plain version, B=256 packets
+     of F=4096, tolerance 0, signed and unsigned, on the inputs the decode
+     path gives it: 24-bit stereo bytesShifted=1, 32-bit stereo
+     bytesShifted=2, 24-bit mono and 32-bit mono bytesShifted=1, each batch
+     with a partial final packet and a truncated packet;
+  7. the hi-res decode path at full size: B=2048 packets of F=4096 96 kHz
+     24-bit stereo music with bytesShifted=1 (87.4 s of audio) through
+     BatchDecoder(cfg) on the default device, bytes equal to the source as
+     3-byte samples, the element, LPC and raw reader launch counts above
+     zero, no host fallback; decode_packets timed as in phase 4;
+  8. the raw reader against its plain version at the shapes phase 7 gave
+     it, tolerance 0; its time by CUDA events beside its bound and the
+     plain version's time;
+  9. 20-bit stereo and 32-bit stereo bytesShifted=2 decodes (B=256), bytes
+     equal to the source;
+ 10. a truncated packet through BatchDecoder(cfg) raises the port's
+     DecodeError subclass.
+The line before the last is the kernels' JSON record (each kernel's
+launches on its path, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
+nor the JAX package saprobe_alac_tpu is importable here: both are blocked
+before any import.
 """
 
 from __future__ import annotations
@@ -43,6 +62,11 @@ import torch
 SEED = 20261016
 F = 4096
 RUNS = 5
+#: The card's peaks (H100 SXM data sheet, at the 700 W limit): memory rate,
+#: and the CUDA-core rate (float32 outside the tensor cores), used for the
+#: integer operations as well, which keeps the operation bound generous.
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -53,9 +77,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def music_pcm(n, channels, seed, tonality=0.98):
-    """Music-like 16-bit PCM: correlated tones plus low-level noise
-    (tonality near 0 is near-white noise)."""
+def music_pcm(n, channels, seed, tonality=0.98, depth=16):
+    """Music-like PCM at ``depth`` bits: correlated tones plus low-level
+    noise (tonality near 0 is near-white noise)."""
     rng = np.random.default_rng(seed)
     t = np.arange(n)
     sig = np.zeros((n, channels))
@@ -66,7 +90,36 @@ def music_pcm(n, channels, seed, tonality=0.98):
             + 0.1 * np.sin(2 * np.pi * t / (389.0 + 29 * c))
         )
         sig[:, c] = tonality * tone * 0.8 + (1 - tonality) * rng.standard_normal(n) * 0.5
-    return np.clip(sig * 32767, -32768, 32767).astype(np.int64)
+    scale = (1 << (depth - 1)) - 1
+    return np.clip(sig * scale, -scale - 1, scale).astype(np.int64)
+
+
+def pcm_bytes(pcm, depth) -> bytes:
+    """The decoder's interleaved little-endian output for source PCM:
+    2-byte samples at 16 bits, 3-byte at 20 (stored << 4) and 24, 4-byte at
+    32 (matrix.go writers)."""
+    v = pcm.astype(np.int64)
+    if depth == 16:
+        return v.astype("<i2").tobytes()
+    if depth == 20:
+        v = v << 4
+    b = v.astype("<i4").view(np.uint8).reshape(-1, 4)
+    return (b if depth == 32 else b[:, :3]).tobytes()
+
+
+def check_decode(out, pcm, depth):
+    """Each packet's bytes equal its slice of the source PCM."""
+    src = pcm_bytes(pcm, depth)
+    per = len(src) // len(pcm) * F
+    for i, o in enumerate(out):
+        if o != src[i * per : (i + 1) * per]:
+            raise AssertionError(f"{depth}-bit packet {i}: bytes differ from the source PCM")
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / CORE_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def timed(fn):
@@ -79,10 +132,27 @@ def timed(fn):
     return out, e0.elapsed_time(e1)
 
 
-def cuda_times(fn, runs=RUNS):
-    """Per-run ms of fn() by CUDA events, after one warm run."""
+def cuda_times(fn, runs=RUNS, reps=1):
+    """Per-call ms of fn() by CUDA events, after one warm run: each of
+    ``runs`` samples times ``reps`` calls back to back."""
     fn()
-    return [timed(fn)[1] for _ in range(runs)]
+
+    def many():
+        for _ in range(reps):
+            fn()
+
+    return [timed(many)[1] / reps for _ in range(runs)]
+
+
+def host_times(fn, runs=RUNS):
+    """Per-call seconds of fn() by the host clock, after one warm run."""
+    fn()
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return out
 
 
 def summary(ms):
@@ -125,7 +195,9 @@ def main() -> int:
     from saprobe_alac_tpu_torch import _build, native
     from saprobe_alac_tpu_torch.ops import lpc_kernel, walk_kernel
     from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
+    from saprobe_alac_tpu_torch.ops.epilogue import shift_reads
     from saprobe_alac_tpu_torch.ops.lpc import lpc_lanes
+    from saprobe_alac_tpu_torch.ops.raw_reader import raw_read, raw_read_reference
     from saprobe_alac_tpu_torch.ops.walk import walk_batch
 
     dev = torch.device("cuda")
@@ -224,11 +296,8 @@ def main() -> int:
     port.reset_launch_counts()
     out = dec.decode_packets(pkts)
     launches = port.launch_counts()
-    src = pcm.astype("<i2").reshape(-1)
-    for i, o in enumerate(out):
-        if o != src[i * F * C : min((i + 1) * F, total) * C].tobytes():
-            raise AssertionError(f"packet {i}: bytes differ from the source PCM")
-    if min(launches.values()) < 1:
+    check_decode(out, pcm, 16)
+    if min(launches["element"], launches["lpc"]) < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     if dec.impl.last_fallbacks:
         raise AssertionError(f"{dec.impl.last_fallbacks} clean packets fell back to the host")
@@ -239,12 +308,7 @@ def main() -> int:
         f"{dec.impl.last_fallbacks}; encode {enc_s:.2f} s"
     )
 
-    host = []
-    for _ in range(RUNS + 1):
-        t0 = time.perf_counter()
-        dec.decode_packets(pkts)
-        host.append(time.perf_counter() - t0)
-    host = host[1:]
+    host = host_times(lambda: dec.decode_packets(pkts))
     med = statistics.median(host)
     print(
         f"phase 4 {tag} decode_packets B={n_pk}: s {summary(host)}; "
@@ -272,6 +336,140 @@ def main() -> int:
         f"ms {summary(t_l32)} | plain {plain_ms_32:.1f}"
     )
 
+    # Bounds of phase 5's work: bytes each input read once (the packets'
+    # own bits, not the padding) and each output written once; operations a
+    # lower count of what these inputs need.
+    ns2 = w2.ns.double()
+    nch = 1 + (w2.role[:, 0] == 1).double()
+    el_bound = bound(
+        float(sizes2.double().sum()) / 8 + 4 * B2 * (5 + 2 + walk_kernel.META_ROWS)
+        + 4 * 2 * walk_kernel.f_pad(F) * B2,
+        8 * float((ns2 * nch).sum()),  # a Rice decode: window, clz, shifts, map
+    )
+    res, fir, order = lpc_in2[0], lpc_in2[1], lpc_in2[2]
+    L2 = order.numel()
+    lpc_bound = bound(
+        4 * (res.numel() + L2 * (7 + 9) + walk_kernel.f_pad(F) * L2),
+        2 * float((lpc_in2[5].double() * order.double() * (fir == 1)).sum()),  # MACs
+    )
+
+    # ---- phase 6: the raw reader against its plain version (B=256) ----
+    def hires_config(depth, channels, rate=96000):
+        return port.PacketConfig(
+            frame_length=F, bit_depth=depth, num_channels=channels, pb=40, mb=10, kb=14,
+            max_run=255, max_frame_bytes=0, avg_bit_rate=0, sample_rate=rate,
+        )
+
+    def shift_inputs(dec_impl, packets):
+        """The words and the raw reader's lane inputs as the decode path
+        builds them (walk, then epilogue.shift_reads)."""
+        c = dec_impl.config
+        words, sizes = dec_impl._stage(packets)
+        w = walk_batch(words, sizes, F=F, C=c.num_channels, depth=c.bit_depth, pb=c.pb,
+                       mb=c.mb, kb=c.kb)
+        return words, shift_reads(w.shift_base, w.bs, w.role, w.ns), w
+
+    r_err, r_lines = 0, []
+    for i, (depth, ch, bsf, quiet) in enumerate([
+        (24, 2, 1, 0), (32, 2, 2, 0), (24, 1, 1, 0),
+        (32, 1, 1, 8),  # 24-bit content: at full scale every packet is an escape
+    ]):
+        hc = hires_config(depth, ch)
+        music = music_pcm(254 * F + 1234, ch, SEED + 20 + i, depth=depth) >> quiet
+        pk = native.encode_packets(hc, music, bytes_shifted=bsf)
+        pk.append(pk[3][: len(pk[3]) // 3])  # truncated
+        assert len(pk) == 256
+        words, args, w = shift_inputs(TorchBatchDecoder(hc, dev), pk)
+        shifted = int((w.bs[:, 0] == bsf).sum())
+        if shifted < 200:
+            raise AssertionError(f"{depth}-bit C={ch}: only {shifted} shifted lanes")
+        for signed in (False, True):
+            a = raw_read(words, *args, F=F, signed=signed)
+            b = raw_read_reference(words, *args, F=F, signed=signed)
+            r_err = max(r_err, amax((a - b).abs()))
+        r_lines.append(f"{depth}-bit C={ch} bs={bsf}: {shifted} shifted lanes")
+    if r_err != 0:
+        raise AssertionError(f"raw reader differs from its plain version: {r_err}")
+    print(
+        f"phase 6 raw reader vs plain (B=256, F={F}, signed and unsigned, tolerance 0): "
+        f"max_abs_err={r_err}; {'; '.join(r_lines)}"
+    )
+
+    # ---- phase 7: the hi-res decode path at full size ----
+    hcfg = hires_config(24, 2)
+    hpcm = music_pcm(total, C, SEED + 30, depth=24)
+    t0 = time.perf_counter()
+    hpkts = native.encode_packets(hcfg, hpcm, bytes_shifted=1)
+    enc_s = time.perf_counter() - t0
+    assert len(hpkts) == n_pk
+    hdec = port.BatchDecoder(hcfg)  # the default device: the card
+    if hdec.impl.device.type != "cuda":
+        raise AssertionError(f"BatchDecoder(cfg) runs on {hdec.impl.device}, not the card")
+    port.reset_launch_counts()
+    hout = hdec.decode_packets(hpkts)
+    h_launches = port.launch_counts()
+    check_decode(hout, hpcm, 24)
+    if min(h_launches.values()) < 1:
+        raise AssertionError(f"a kernel of the hi-res path never launched: {h_launches}")
+    if hdec.impl.last_fallbacks:
+        raise AssertionError(f"{hdec.impl.last_fallbacks} clean hi-res packets fell back")
+    h_audio_s = total / hcfg.sample_rate
+    print(
+        f"phase 7 decode_packets B={n_pk} F={F} 96 kHz 24-bit stereo bytesShifted=1 "
+        f"({h_audio_s:.1f} s of audio): bytes == source PCM (3-byte samples); launches "
+        f"{h_launches}; host fallbacks {hdec.impl.last_fallbacks}; encode {enc_s:.2f} s"
+    )
+    h_host = host_times(lambda: hdec.decode_packets(hpkts))
+    h_med = statistics.median(h_host)
+    print(
+        f"phase 7 {tag} decode_packets hi-res B={n_pk}: s {summary(h_host)}; "
+        f"x realtime median {h_audio_s / h_med:.1f} (min {h_audio_s / max(h_host):.1f}, "
+        f"max {h_audio_s / min(h_host):.1f})"
+    )
+
+    # ---- phase 8: the raw reader at the hi-res path's shapes, and times ----
+    hwords, hargs, hw = shift_inputs(hdec.impl, hpkts)
+    want = raw_read_reference(hwords, *hargs, F=F)
+    r_err = max(r_err, amax((raw_read(hwords, *hargs, F=F) - want).abs()))
+    if r_err != 0:
+        raise AssertionError(f"raw reader differs from its plain version at B={n_pk}: {r_err}")
+    t_rr = cuda_times(lambda: raw_read(hwords, *hargs, F=F), reps=20)
+    t_rr_plain = cuda_times(lambda: raw_read_reference(hwords, *hargs, F=F))
+    base, step, _, act, n = hargs
+    fields = torch.where(act != 0, n, 0).double()
+    rr_bound = bound(
+        float((fields * step.double()).sum()) / 8 + 4 * n_pk * 5 + 4 * want.numel(),
+        4 * float(fields.sum()),  # two shifts, an or, a shift per field
+    )
+    print(
+        f"phase 8 {tag} raw reader vs plain at B={n_pk} F={F} (the pair as one "
+        f"{int(step[0])}-bit field), tolerance 0: max_abs_err {r_err}; ms {summary(t_rr)} "
+        f"(20 launches per sample) | plain ms {summary(t_rr_plain)} | bound "
+        f"{rr_bound[0]:.4f} ms by {rr_bound[1]}"
+    )
+
+    # ---- phase 9: 20-bit and 32-bit decodes ----
+    d_lines = []
+    for depth, bsf in ((20, 0), (32, 2)):
+        dc = hires_config(depth, 2, rate=48000)
+        dpcm = music_pcm(255 * F + 777, C, SEED + 40 + depth, depth=depth)
+        ddec = port.BatchDecoder(dc)
+        dout = ddec.decode_packets(native.encode_packets(dc, dpcm, bytes_shifted=bsf))
+        check_decode(dout, dpcm, depth)
+        if ddec.impl.last_fallbacks:
+            raise AssertionError(f"{ddec.impl.last_fallbacks} clean {depth}-bit packets fell back")
+        d_lines.append(f"{depth}-bit stereo bytesShifted={bsf} B={len(dout)}: bytes == source")
+    print(f"phase 9 {'; '.join(d_lines)}; host fallbacks 0")
+
+    # ---- phase 10: the typed error on the card ----
+    try:
+        hdec.decode_packets([hpkts[0], hpkts[1][: len(hpkts[1]) // 3]])
+    except port.DecodeError as exc:
+        err_name = type(exc).__name__
+    else:
+        raise AssertionError("a truncated packet decoded without an error")
+    print(f"phase 10 truncated packet through BatchDecoder(cfg): raised the port's {err_name}")
+
     kernels = [
         {
             "name": "element", "route": "cuda",
@@ -279,6 +477,7 @@ def main() -> int:
             "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:747",
             "launches": launches["element"], "max_abs_err": e_err,
             "ms": statistics.median(t_el), "plain_ms": el_plain_ms,
+            "bound_ms": el_bound[0], "bound_by": el_bound[1], "library_ms": None,
         },
         {
             "name": "lpc", "route": "cuda",
@@ -286,7 +485,16 @@ def main() -> int:
             "replaces": "saprobe_alac_tpu/ops/lpc_kernel.py:91",
             "launches": launches["lpc"], "max_abs_err": l_err,
             "ms": statistics.median(t_lpc), "plain_ms": lpc_plain_ms,
+            "bound_ms": lpc_bound[0], "bound_by": lpc_bound[1], "library_ms": None,
             "ms_taps32_L512": statistics.median(t_l32), "plain_ms_taps32_L512": plain_ms_32,
+        },
+        {
+            "name": "raw_read", "route": "cuda",
+            "source": "saprobe_alac_tpu_torch/csrc/raw_reader_kernel.cu",
+            "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:1252",
+            "launches": h_launches["raw_read"], "max_abs_err": r_err,
+            "ms": statistics.median(t_rr), "plain_ms": statistics.median(t_rr_plain),
+            "bound_ms": rr_bound[0], "bound_by": rr_bound[1], "library_ms": None,
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -30,13 +30,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
-_KERNEL_SOURCES = ("alac_int.cuh", "element_kernel.cu", "lpc_kernel.cu")
+_KERNEL_SOURCES = ("alac_int.cuh", "element_kernel.cu", "lpc_kernel.cu", "raw_reader_kernel.cu")
 
 _lock = threading.Lock()
 _lib = None
 
 #: Launches per kernel since the last reset (plain integers).
-_launches = {"element": 0, "lpc": 0}
+_launches = {"element": 0, "lpc": 0, "raw_read": 0}
 
 
 def count_launch(name: str) -> None:
@@ -52,12 +52,14 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
-def build_library(stem: str, sources: list[Path], argv) -> Path:
-    """``_build/<stem>.so``, rebuilt by ``argv(out_path)`` when the sources
-    or the command changed.  The compiler's output goes to ``<stem>.log``."""
+def build_library(stem: str, sources: list[Path], stages) -> Path:
+    """``_build/<stem>.so``, rebuilt by ``stages(out_path)`` when the sources
+    or the commands changed.  ``stages`` gives a list of stages, each a list
+    of commands started together; a stage starts when the one before it has
+    ended.  The compilers' output goes to ``<stem>.log``."""
     _OUT.mkdir(parents=True, exist_ok=True)
     so, stamp, log = (_OUT / f"{stem}{ext}" for ext in (".so", ".sha256", ".log"))
-    h = hashlib.sha256(" ".join(argv(so)).encode())
+    h = hashlib.sha256(repr(stages(so)).encode())
     for src in sources:
         h.update(src.read_bytes())
     digest = h.hexdigest()
@@ -66,10 +68,27 @@ def build_library(stem: str, sources: list[Path], argv) -> Path:
         if so.exists() and stamp.exists() and stamp.read_text() == digest:
             return so
         tmp = _OUT / f"{stem}.{os.getpid()}.tmp.so"
-        proc = subprocess.run(argv(tmp), capture_output=True, text=True, timeout=600)
-        log.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {stem} failed ({proc.returncode}):\n{proc.stderr}")
+        text = []
+        try:
+            for stage in stages(tmp):
+                procs = [
+                    subprocess.Popen(
+                        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                    )
+                    for cmd in stage
+                ]
+                try:
+                    text += [proc.communicate(timeout=600)[0] for proc in procs]
+                finally:
+                    for proc in procs:
+                        proc.kill()
+                log.write_text("".join(text))
+                rcs = [proc.returncode for proc in procs]
+                if any(rcs):
+                    raise RuntimeError(f"building {stem} failed ({rcs}):\n{''.join(text)}")
+        finally:
+            for part in _OUT.glob(f"{tmp.name}.*.o"):
+                part.unlink()
         os.replace(tmp, so)
         stamp.write_text(digest)
     return so
@@ -86,13 +105,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _kernels_argv(out: Path) -> list[str]:
-    return [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(out),
-        str(_CSRC / "element_kernel.cu"), str(_CSRC / "lpc_kernel.cu"),
-    ]
+def _kernel_stages(out: Path) -> list[list[list[str]]]:
+    """One nvcc per source, all at once, then one link."""
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"]
+    objs, compile_ = [], []
+    for name in _KERNEL_SOURCES:
+        if name.endswith(".cu"):
+            obj = f"{out}.{name[:-3]}.o"
+            objs.append(obj)
+            compile_.append([nvcc, *flags, "-Xptxas", "-v", "-c", "-o", obj, str(_CSRC / name)])
+    return [compile_, [[nvcc, *flags, "-shared", "-o", str(out), *objs]]]
 
 
 def build_log() -> str:
@@ -109,7 +133,7 @@ def load():
         if _lib is not None:
             return _lib
         so = build_library(
-            "libalac_kernels", [_CSRC / n for n in _KERNEL_SOURCES], _kernels_argv
+            "libalac_kernels", [_CSRC / n for n in _KERNEL_SOURCES], _kernel_stages
         )
         lib = ctypes.CDLL(str(so))
         P, I = ctypes.c_void_p, ctypes.c_int
@@ -129,5 +153,11 @@ def load():
                 P, I, I,  # out, F_pad, L
                 P,  # stream
             ]
+        lib.alac_raw_read_launch.restype = I
+        lib.alac_raw_read_launch.argtypes = [
+            P, I, P, P, P, P, P,  # words, W, base, step, width, act, n
+            P, I, I, I,  # out, B, F_pad, is_signed
+            P,  # stream
+        ]
         _lib = lib
         return _lib

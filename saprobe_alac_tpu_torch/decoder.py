@@ -1,8 +1,9 @@
 """Packet-level batch decode API on one PyTorch device.
 
 Counterpart of saprobe_alac_tpu/decoder.py `BatchDecoder` (decoder.py:58-131).
-The device is named by the caller: on a CUDA device the batch runs through
-the hand-written kernels, on the CPU through their plain PyTorch versions.
+The batch runs on the card unless the caller asks for the CPU: on a CUDA
+device through the hand-written kernels, on ``"cpu"`` through their plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from .ops.batch import TorchBatchDecoder
 class BatchDecoder:
     """Batched packet decoding for one PacketConfig on one device."""
 
-    def __init__(self, config: PacketConfig, device):
+    def __init__(self, config: PacketConfig, device="cuda"):
         self.config = config
         self.impl = TorchBatchDecoder(config, device)
 

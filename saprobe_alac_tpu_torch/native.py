@@ -50,10 +50,10 @@ class _EncSpec(ctypes.Structure):
     ] + [("coefs", ctypes.c_int16 * 32)]
 
 
-def _argv(out):
-    return ["g++", "-O3", "-shared", "-fPIC", "-fwrapv", "-fopenmp", "-o", str(out)] + [
-        str(s) for s in _SOURCES
-    ]
+def _stages(out):
+    """One g++ command, one stage (see ``_build.build_library``)."""
+    argv = ["g++", "-O3", "-shared", "-fPIC", "-fwrapv", "-fopenmp", "-o", str(out)]
+    return [[argv + [str(s) for s in _SOURCES]]]
 
 
 def load():
@@ -62,7 +62,7 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build_library("libalac_host", _SOURCES, _argv)))
+        lib = ctypes.CDLL(str(build_library("libalac_host", _SOURCES, _stages)))
         P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         lib.alac_pack_packets.restype = I32
         lib.alac_pack_packets.argtypes = [P, P, P, I32, I32, P]
@@ -119,18 +119,21 @@ def decode_batch(config, packets: Sequence[bytes]):
 
 
 def encode_packets(config, pcm: np.ndarray, *, order: int = 4, mode: int = 0,
-                   escape: bool = False) -> list[bytes]:
+                   escape: bool = False, bytes_shifted: int = 0) -> list[bytes]:
     """Encode (n, channels) integer PCM into packets of ``frame_length``
     samples (the last one partial), with the JAX package encoder's default
     spec otherwise (den_shift 9, pb_factor 4, mix_bits 1, mix_res 1).  The
     core fits each channel's initial LPC coefficients per packet; near-white
     blocks become escape elements when that is smaller, and ``escape``
-    forces them."""
+    forces them.  ``bytes_shifted`` (0..2) moves the low bytes of 24/32-bit
+    samples into the shift region; the core ignores it below 24 bits and
+    raises it to 1 for a 32-bit pair (native/alac_encode.cpp:292-293)."""
     if pcm.ndim != 2 or pcm.shape[1] != config.num_channels:
         raise ValueError(f"pcm must be (n, {config.num_channels}), got {pcm.shape}")
     spec = _EncSpec(
         order=order, den_shift=9, pb_factor=4, mode=mode, mix_bits=1, mix_res=1,
-        bytes_shifted=0, force_escape=int(escape), auto_escape=1, use_lfe_tag=1, fit=1,
+        bytes_shifted=bytes_shifted, force_escape=int(escape), auto_escape=1, use_lfe_tag=1,
+        fit=1,
         coefs=(ctypes.c_int16 * 32)(*_DEFAULT_COEFS[: order if order < 31 else 0]),
     )
     cfg = _config(config)

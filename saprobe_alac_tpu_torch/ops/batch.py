@@ -1,13 +1,13 @@
 """Batch decode orchestration: host packing -> device phases -> host bytes.
 
 Counterpart of saprobe_alac_tpu/ops/batch.py `JaxBatchDecoder` for the
-single-slot slice: 16-bit streams with C in {1, 2}.  The device is explicit:
-a CUDA device launches the kernels, the CPU runs their plain versions, and
-nothing moves between the two by itself.  Packets that trip device-side
-validation (any nonzero ERR_* code) are decoded by the exact host path, the
-JAX package's error contract (batch.py:32-51, 380-390).  Staging and the
-host path run on the repo's C++ host core (``..native``); only a packet the
-core rejects reaches the JAX package's scalar oracle, which is pure Python.
+single-slot slice: 16-, 20-, 24- and 32-bit streams with C in {1, 2}.  A
+CUDA device (the default) launches the kernels, the CPU runs their plain
+versions, and nothing moves between the two by itself.  Packets that trip
+device-side validation (any nonzero ERR_* code) are decoded by the exact
+host path, the JAX package's error contract (batch.py:32-51, 380-390).
+Staging and the host path run on the repo's C++ host core (``..native``); a
+packet the core rejects raises the class the scalar oracle raises for it.
 """
 
 from __future__ import annotations
@@ -19,21 +19,22 @@ import torch
 
 from .. import native
 from ..config import PacketConfig
-from .epilogue import finish_packed
+from ..errors import UnsupportedBitDepth, core_error
+from .epilogue import extract_shift, finish_packed
 from .lpc import lpc_batch
 from .walk import ERR_NONE, walk_batch
 
 
 def _host_decode(config: PacketConfig, packets: Sequence[bytes]) -> list[bytes]:
-    """Host decode by the threaded C++ core; packets the core rejects re-run
-    through the scalar oracle so malformed input raises its typed error."""
+    """Host decode by the threaded C++ core.  The first packet the core
+    rejects raises the error class of its code, the class the scalar oracle
+    raises for the same packet (the JAX package re-runs the oracle to get
+    it, batch.py:32-51)."""
     out, lens, errs = native.decode_batch(config, packets)
-    result = [out[i, : lens[i]].tobytes() for i in range(len(packets))]
-    for i in np.flatnonzero(errs):
-        from saprobe_alac_tpu.codec import decode_packet
-
-        result[i] = decode_packet(config, packets[i])[0]
-    return result
+    bad = np.flatnonzero(errs)
+    if bad.size:
+        raise core_error(int(errs[bad[0]]))
+    return [out[i, : lens[i]].tobytes() for i in range(len(packets))]
 
 
 def _bucket(n: int, floor: int = 8) -> int:
@@ -50,11 +51,12 @@ def _bucket(n: int, floor: int = 8) -> int:
 class TorchBatchDecoder:
     """Device-batched packet decoding for one PacketConfig on one device."""
 
-    def __init__(self, config: PacketConfig, device):
-        if config.bit_depth != 16 or config.num_channels not in (1, 2):
+    def __init__(self, config: PacketConfig, device="cuda"):
+        if config.bit_depth not in (16, 20, 24, 32):
+            raise UnsupportedBitDepth(f"unsupported bit depth {config.bit_depth}")
+        if config.num_channels not in (1, 2):
             raise NotImplementedError(
-                f"the port decodes 16-bit mono/stereo only; got "
-                f"{config.bit_depth}-bit, {config.num_channels} channels"
+                f"the port decodes mono and stereo only; got {config.num_channels} channels"
             )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -100,10 +102,8 @@ class TorchBatchDecoder:
         finish_async re-runs at 32 taps when ``wide`` flags an order 9..30."""
         cfg = self.config
         words, sizes = self._stage(packets)
-        F, C = cfg.frame_length, cfg.num_channels
-        w = walk_batch(
-            words, sizes, F=F, C=C, depth=cfg.bit_depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb
-        )
+        F, C, depth = cfg.frame_length, cfg.num_channels, cfg.bit_depth
+        w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
         L = words.shape[0] * C
         mix = lpc_batch(
             w.res,
@@ -120,13 +120,30 @@ class TorchBatchDecoder:
             wide = ((w.order >= 9) & (w.order <= 30)).any(dim=1)
         else:
             wide = torch.zeros_like(w.err, dtype=torch.bool)
-        packed = finish_packed(mix, w.mixbits, w.mixres, w.role, w.out_chan, w.filled, C=C)
+        # Only the 24/32-bit writers re-insert shift bits (epilogue.py); the
+        # reader runs for every such batch, as in the JAX package's dense path.
+        shift_vals = None
+        if depth in (24, 32):
+            shift_vals = extract_shift(words, w.shift_base, w.bs, w.role, w.ns, F=F, C=C)
+        packed = finish_packed(
+            mix, shift_vals, w.bs, w.mixbits, w.mixres, w.role, w.out_chan, w.filled,
+            C=C, depth=depth,
+        )
         return packed, w.err, w.ns, wide
 
     def _to_bytes(self, packed_row: np.ndarray, ns: int) -> bytes:
-        C = self.config.num_channels
-        # Stereo rows hold one int32 word per frame (two LE int16 samples).
-        return packed_row[: ns * C // 2 if C == 2 else ns].tobytes()
+        """One packet's PCM from its finish_packed row (batch.py:348-364)."""
+        depth, C = self.config.bit_depth, self.config.num_channels
+        if depth == 16:
+            # Stereo rows hold one int32 word per frame (two LE int16 samples).
+            return packed_row[: ns * C // 2 if C == 2 else ns].tobytes()
+        if depth in (20, 24):
+            nb = ns * C * 3
+            if (self.config.frame_length * C) % 4 == 0:
+                # Four 3-byte samples per three LE int32 words; trim to bytes.
+                return packed_row[: (nb + 3) // 4].tobytes()[:nb]
+            return packed_row[:nb].tobytes()
+        return packed_row[: ns * C].tobytes()
 
     def finish_async(self, handle, packets: Sequence[bytes]) -> list[bytes]:
         """Materialize a decode_async result into per-packet PCM bytes."""

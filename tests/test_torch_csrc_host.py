@@ -24,6 +24,7 @@ from conftest import make_config, music_pcm
 from saprobe_alac_tpu_torch import native
 from saprobe_alac_tpu_torch.ops import lpc_kernel, walk_kernel
 from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
+from saprobe_alac_tpu_torch.ops.raw_reader import raw_read_reference
 from saprobe_alac_tpu_torch.ops.lpc import lpc_lanes
 from saprobe_alac_tpu_torch.ops.walk import walk_batch
 
@@ -51,7 +52,7 @@ def host_lib(tmp_path_factory):
         pytest.skip("g++ is not installed")
     tmp = tmp_path_factory.mktemp("csrc_host")
     srcs = []
-    for name in ("element_kernel.cu", "lpc_kernel.cu"):
+    for name in ("element_kernel.cu", "lpc_kernel.cu", "raw_reader_kernel.cu"):
         src = tmp / (name[:-3] + ".cpp")
         src.write_text(_host_source((CSRC / name).read_text()))
         srcs.append(str(src))
@@ -124,4 +125,33 @@ def test_lpc_kernel_host_matches_plain(host_lib, C, taps):
         walk_kernel.f_pad(F), L, None,
     )
     assert rc == 0
+    assert torch.equal(got, want), f"differs at {torch.nonzero(got != want)[:5].tolist()}"
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("width", [8, 16, 24, 32, "mixed"])
+def test_raw_reader_kernel_host_matches_plain(host_lib, width, signed):
+    """Random words; steps of 1-2 field widths; inactive lanes, n from 0 to
+    past F, fields running past the last column, F not a multiple of 16 and
+    a lane count not a multiple of the block."""
+    B, W, Fr = 200, 420, 200
+    rng = np.random.default_rng(7 + signed)
+    i32 = np.int32
+    words = rng.integers(-(2**31), 2**31, size=(B, W), dtype=np.int64).astype(i32)
+    widths = (rng.integers(1, 33, size=B) if width == "mixed" else np.full(B, width)).astype(i32)
+    step = (widths * rng.integers(1, 3, size=B)).astype(i32)
+    n = rng.integers(0, Fr + 20, size=B).astype(i32)
+    act = (rng.random(B) < 0.8).astype(i32)
+    base = rng.integers(0, 64, size=B)
+    base[:8] = W * 32 - np.minimum(n[:8], Fr) * step[:8] + rng.integers(-40, 10, size=8)
+    base = np.maximum(base, 0).astype(i32)
+    args = [torch.from_numpy(x) for x in (words, base, step, widths, act, n)]
+    want = raw_read_reference(*args, F=Fr, signed=signed)
+    got = torch.full_like(want, SENTINEL)
+    rc = host_lib.alac_raw_read_launch(
+        _ptr(args[0]), W, *(_ptr(t) for t in args[1:]), _ptr(got), B, want.shape[0],
+        int(signed), None,
+    )
+    assert rc == 0
+    assert want.any() and (want[:Fr] != 0).sum(0).max() > 100
     assert torch.equal(got, want), f"differs at {torch.nonzero(got != want)[:5].tolist()}"

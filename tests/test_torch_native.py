@@ -63,3 +63,24 @@ def test_encode_packets_round_trip(C, kw, tonality):
     pkts = native.encode_packets(cfg, pcm, **kw)
     assert len(pkts) == 3
     assert b"".join(oracle(cfg, p)[0] for p in pkts) == pcm.astype("<i2").tobytes()
+
+
+@pytest.mark.parametrize(
+    "depth,C,bsf,want_bs",
+    [(24, 1, 1, 1), (24, 2, 1, 1), (24, 2, 2, 2), (32, 1, 1, 1), (32, 2, 2, 2), (32, 2, 0, 1)],
+)
+def test_encode_packets_bytes_shifted(depth, C, bsf, want_bs):
+    """The oracle decodes the fixture encoder's shifted packets to the
+    source PCM, and their headers carry the shift (a 32-bit pair at 0 is
+    raised to 1).  32-bit music shifted by one byte is 24-bit content: at
+    full scale its residuals would make every packet an escape."""
+    cfg = make_config(depth=depth, channels=C, frame_length=F)
+    quiet = 8 if depth == 32 and bsf < 2 else 0
+    pcm = music_pcm(3 * F - 37, C, depth, seed=depth + C) >> quiet
+    pkts = native.encode_packets(cfg, pcm, bytes_shifted=bsf)
+    want = pcm.astype("<i4").view(np.uint8).reshape(-1, 4)
+    want = (want if depth == 32 else want[:, :3]).tobytes()
+    assert b"".join(oracle(cfg, p)[0] for p in pkts) == want
+    for p in pkts:
+        hdr = int.from_bytes(p[:3], "big")  # tag 3, instance 4, unused 12, partial, bs 2, esc
+        assert (hdr >> 1) & 1 == 0 and (hdr >> 2) & 3 == want_bs
