@@ -8,10 +8,11 @@ Phases, one line each (any failure raises and exits non-zero):
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
   2. build of the CUDA kernels (csrc/, nvcc) and of the C++ host core
      (native/, g++);
-  3. each kernel against its plain PyTorch version on the card, B=256
-     packets, F=4096, 16-bit stereo, tolerance 0 (integer code): music, a
-     partial final packet, near-white noise (escape elements), order-12 LPC
-     (the 32-tap variant), order 31 with mode 1, and two corrupted packets;
+  3. the element and LPC kernels against their plain PyTorch versions on
+     the card, B=256 packets, F=4096, 16-bit stereo, tolerance 0 (integer
+     code): music, a partial final packet, near-white noise (escape
+     elements), order-12 LPC (the 32-tap variant), order 31 with mode 1,
+     and two corrupted packets;
   4. the decode path at full size: B=2048 packets of F=4096 44.1 kHz 16-bit
      stereo music (about 190 s) through BatchDecoder(cfg, "cuda"), bytes
      equal to the source PCM, both kernels' launch counts above zero, no
@@ -21,19 +22,21 @@ Phases, one line each (any failure raises and exits non-zero):
      (the element kernel on the B=2048 batch, the LPC at 9 taps on its 4096
      lanes), tolerance 0; kernel times by CUDA events (median of warm runs),
      each plain version's once;
-  6. the raw reader (shift region) against its plain version, B=256 packets
-     of F=4096, tolerance 0, signed and unsigned, on the inputs the decode
-     path gives it: 24-bit stereo bytesShifted=1, 32-bit stereo
-     bytesShifted=2, 24-bit mono and 32-bit mono bytesShifted=1, each batch
-     with a partial final packet and a truncated packet;
+  6. all three kernels against their plain versions, B=256 packets of
+     F=4096, tolerance 0, on the inputs the decode path gives them: 24-bit
+     stereo bytesShifted=1, 32-bit stereo bytesShifted=2, 24-bit mono and
+     32-bit mono bytesShifted=1, each batch music ending in a partial
+     packet, near-white noise (escapes of 24- and 32-bit samples) and a
+     truncated packet; the raw reader signed and unsigned;
   7. the hi-res decode path at full size: B=2048 packets of F=4096 96 kHz
      24-bit stereo music with bytesShifted=1 (87.4 s of audio) through
      BatchDecoder(cfg) on the default device, bytes equal to the source as
      3-byte samples, the element, LPC and raw reader launch counts above
      zero, no host fallback; decode_packets timed as in phase 4;
-  8. the raw reader against its plain version at the shapes phase 7 gave
-     it, tolerance 0; its time by CUDA events beside its bound and the
-     plain version's time;
+  8. all three kernels against their plain versions at the shapes phase 7
+     gave them, tolerance 0; their times by CUDA events beside their bounds
+     and the plain versions' times; the raw reader cold (L2 flushed before
+     each launch) and warm (20 launches back to back);
   9. 20-bit stereo and 32-bit stereo bytesShifted=2 decodes (B=256), bytes
      equal to the source;
  10. a truncated packet through BatchDecoder(cfg) raises the port's
@@ -221,24 +224,50 @@ def main() -> int:
     C = 2
     i32 = torch.int32
     stager = TorchBatchDecoder(cfg, dev)
-    e_kw = dict(kb=cfg.kb, F=F, depth=16, pb_cfg=cfg.pb, mb_cfg=cfg.mb, passes=2)
 
-    def element_args(words, sizes):
+    def element_kw(c):
+        return dict(kb=c.kb, F=F, depth=c.bit_depth, pb_cfg=c.pb, mb_cfg=c.mb,
+                    passes=c.num_channels)
+
+    def element_args(words, sizes, channels=C):
+        """The element kernel's inputs as walk_batch builds them."""
         B = words.shape[0]
         return (
             words, torch.zeros(B, dtype=i32, device=dev), (sizes > 0).to(i32), sizes,
-            torch.full((B,), F, dtype=i32, device=dev), torch.ones(B, dtype=i32, device=dev),
+            torch.full((B,), F, dtype=i32, device=dev),
+            torch.full((B,), int(channels > 1), dtype=i32, device=dev),
         )
 
-    def lanes(words, sizes):
+    def walk(c, words, sizes):
+        return walk_batch(words, sizes, F=F, C=c.num_channels, depth=c.bit_depth, pb=c.pb,
+                          mb=c.mb, kb=c.kb)
+
+    def lanes(w, channels=C):
         """The LPC kernel's inputs as the main path builds them."""
-        w = walk_batch(words, sizes, F=F, C=C, depth=16, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
-        L = words.shape[0] * C
+        L = w.ns.numel() * channels
         lane = (
             w.order.T.reshape(L), w.mode.T.reshape(L), w.den.T.reshape(L),
-            w.cb.T.reshape(L), w.ns.repeat(C), w.coefs.transpose(0, 1).reshape(L, 32),
+            w.cb.T.reshape(L), w.ns.repeat(channels), w.coefs.transpose(0, 1).reshape(L, 32),
         )
-        return w, (w.res, *lpc_lanes(*lane))
+        return (w.res, *lpc_lanes(*lane))
+
+    def check_walk_lpc(c, words, sizes, w):
+        """The element kernel and the 9-tap LPC kernel against their plain
+        versions on one batch: (element err, LPC err, element plain ms, LPC
+        plain ms, error lanes)."""
+        ch = c.num_channels
+        args, kw = element_args(words, sizes, ch), element_kw(c)
+        want, el_ms = timed(lambda: walk_kernel.dense_element_reference(*args, **kw))
+        e = element_diff(walk_kernel.dense_element(*args, **kw), want, walk_kernel.M_NS)
+        lin = lanes(w, ch)
+        want_l, lpc_ms = timed(lambda: lpc_kernel.lpc_fir_reference(*lin, F=F, taps=9))
+        lp = lpc_diff(lpc_kernel.lpc_fir(*lin, F=F, taps=9), want_l, w.ns.repeat(ch))
+        if e != 0 or lp != 0:
+            raise AssertionError(
+                f"{c.bit_depth}-bit C={ch} B={words.shape[0]}: element {e}, LPC {lp} "
+                "against their plain versions"
+            )
+        return e, lp, el_ms, lpc_ms, int((want[2] != 0).sum())
 
     # ---- phase 3: kernels against their plain versions (B=256) ----
     pk = []
@@ -259,29 +288,23 @@ def main() -> int:
     assert len(pk) == 256
     words, sizes = stager._stage(pk)
     B = words.shape[0]
-    e_args = element_args(words, sizes)
-    got = walk_kernel.dense_element(*e_args, **e_kw)
-    e_err = element_diff(got, walk_kernel.dense_element_reference(*e_args, **e_kw), walk_kernel.M_NS)
-    n_err = int((got[2] != 0).sum())
-    if e_err != 0:
-        raise AssertionError(f"element kernel differs from its plain version: {e_err}")
-    if n_err < 2:
-        raise AssertionError(f"expected the corrupted packets to flag an error, got {n_err}")
-
-    w, lpc_in = lanes(words, sizes)
+    w = walk(cfg, words, sizes)
     if not (w.order == 12).any() or not (w.order == 31).any() or not (w.esc == 1).any():
         raise AssertionError("phase 3 batch lacks order-12, order-31 or escape lanes")
-    l_err = 0
-    for taps in (9, 32):
-        a = lpc_kernel.lpc_fir(*lpc_in, F=F, taps=taps)
-        b, plain_ms_32 = timed(lambda: lpc_kernel.lpc_fir_reference(*lpc_in, F=F, taps=taps))
-        l_err = max(l_err, lpc_diff(a, b, w.ns.repeat(C)))
+    e_err, l_err, el_plain_256, _, n_err = check_walk_lpc(cfg, words, sizes, w)
+    if n_err < 2:
+        raise AssertionError(f"expected the corrupted packets to flag an error, got {n_err}")
+    lpc_in = lanes(w)
+    a = lpc_kernel.lpc_fir(*lpc_in, F=F, taps=32)
+    b, plain_ms_32 = timed(lambda: lpc_kernel.lpc_fir_reference(*lpc_in, F=F, taps=32))
+    l_err = max(l_err, lpc_diff(a, b, w.ns.repeat(C)))
     if l_err != 0:
-        raise AssertionError(f"LPC kernel differs from its plain version: {l_err}")
+        raise AssertionError(f"LPC kernel (32 taps) differs from its plain version: {l_err}")
     t_l32 = cuda_times(lambda: lpc_kernel.lpc_fir(*lpc_in, F=F, taps=32))
     print(
         f"phase 3 kernels vs plain (B={B}, F={F}, stereo, tolerance 0): element "
-        f"max_abs_err={e_err} ({n_err} error lanes equal), lpc taps 9/32 max_abs_err={l_err}"
+        f"max_abs_err={e_err} ({n_err} error lanes equal; plain {el_plain_256:.1f} ms), "
+        f"lpc taps 9/32 max_abs_err={l_err}"
     )
 
     # ---- phase 4: the decode path at full size ----
@@ -319,14 +342,11 @@ def main() -> int:
     # ---- phase 5: kernels vs plain at the main path's shapes, and times ----
     words2, sizes2 = stager._stage(pkts)
     B2 = words2.shape[0]
-    e_args2 = element_args(words2, sizes2)
-    want, el_plain_ms = timed(lambda: walk_kernel.dense_element_reference(*e_args2, **e_kw))
-    e_err = max(e_err, element_diff(walk_kernel.dense_element(*e_args2, **e_kw), want, walk_kernel.M_NS))
-    w2, lpc_in2 = lanes(words2, sizes2)
-    want, lpc_plain_ms = timed(lambda: lpc_kernel.lpc_fir_reference(*lpc_in2, F=F, taps=9))
-    l_err = max(l_err, lpc_diff(lpc_kernel.lpc_fir(*lpc_in2, F=F, taps=9), want, w2.ns.repeat(C)))
-    if e_err != 0 or l_err != 0:
-        raise AssertionError(f"kernels differ from their plain versions at B={B2}: {e_err}, {l_err}")
+    w2 = walk(cfg, words2, sizes2)
+    e5, l5, el_plain_ms, lpc_plain_ms, _ = check_walk_lpc(cfg, words2, sizes2, w2)
+    e_err, l_err = max(e_err, e5), max(l_err, l5)
+    e_args2, lpc_in2 = element_args(words2, sizes2), lanes(w2)
+    e_kw = element_kw(cfg)
     t_el = cuda_times(lambda: walk_kernel.dense_element(*e_args2, **e_kw))
     t_lpc = cuda_times(lambda: lpc_kernel.lpc_fir(*lpc_in2, F=F, taps=9))
     print(
@@ -336,63 +356,78 @@ def main() -> int:
         f"ms {summary(t_l32)} | plain {plain_ms_32:.1f}"
     )
 
-    # Bounds of phase 5's work: bytes each input read once (the packets'
-    # own bits, not the padding) and each output written once; operations a
-    # lower count of what these inputs need.
-    ns2 = w2.ns.double()
-    nch = 1 + (w2.role[:, 0] == 1).double()
-    el_bound = bound(
-        float(sizes2.double().sum()) / 8 + 4 * B2 * (5 + 2 + walk_kernel.META_ROWS)
-        + 4 * 2 * walk_kernel.f_pad(F) * B2,
-        8 * float((ns2 * nch).sum()),  # a Rice decode: window, clz, shifts, map
-    )
-    res, fir, order = lpc_in2[0], lpc_in2[1], lpc_in2[2]
-    L2 = order.numel()
-    lpc_bound = bound(
-        4 * (res.numel() + L2 * (7 + 9) + walk_kernel.f_pad(F) * L2),
-        2 * float((lpc_in2[5].double() * order.double() * (fir == 1)).sum()),  # MACs
-    )
+    def walk_bounds(w, sizes, lpc_in):
+        """Bounds of the element and 9-tap LPC kernels' work on one batch:
+        bytes each input read once (the packets' own bits, not the padding)
+        and each output written once; operations a lower count of what
+        these inputs need."""
+        Bw = sizes.numel()
+        ns = w.ns.double()
+        nch = 1 + (w.role[:, 0] == 1).double()
+        el = bound(
+            float(sizes.double().sum()) / 8 + 4 * Bw * (5 + 2 + walk_kernel.META_ROWS)
+            + 4 * 2 * walk_kernel.f_pad(F) * Bw,
+            8 * float((ns * nch).sum()),  # a Rice decode: window, clz, shifts, map
+        )
+        res, fir, order = lpc_in[0], lpc_in[1], lpc_in[2]
+        L = order.numel()
+        lp = bound(
+            4 * (res.numel() + L * (7 + 9) + walk_kernel.f_pad(F) * L),
+            2 * float((lpc_in[5].double() * order.double() * (fir == 1)).sum()),  # MACs
+        )
+        return el, lp
 
-    # ---- phase 6: the raw reader against its plain version (B=256) ----
+    el_bound, lpc_bound = walk_bounds(w2, sizes2, lpc_in2)
+
+    # ---- phase 6: every kernel against its plain version on hi-res batches (B=256) ----
     def hires_config(depth, channels, rate=96000):
         return port.PacketConfig(
             frame_length=F, bit_depth=depth, num_channels=channels, pb=40, mb=10, kb=14,
             max_run=255, max_frame_bytes=0, avg_bit_rate=0, sample_rate=rate,
         )
 
-    def shift_inputs(dec_impl, packets):
-        """The words and the raw reader's lane inputs as the decode path
-        builds them (walk, then epilogue.shift_reads)."""
-        c = dec_impl.config
-        words, sizes = dec_impl._stage(packets)
-        w = walk_batch(words, sizes, F=F, C=c.num_channels, depth=c.bit_depth, pb=c.pb,
-                       mb=c.mb, kb=c.kb)
-        return words, shift_reads(w.shift_base, w.bs, w.role, w.ns), w
+    def hires_inputs(c, packets):
+        """The words, the walk and the raw reader's lane inputs as the decode
+        path builds them (walk, then epilogue.shift_reads)."""
+        words, sizes = TorchBatchDecoder(c, dev)._stage(packets)
+        w = walk(c, words, sizes)
+        return words, sizes, w, shift_reads(w.shift_base, w.bs, w.role, w.ns)
 
     r_err, r_lines = 0, []
     for i, (depth, ch, bsf, quiet) in enumerate([
         (24, 2, 1, 0), (32, 2, 2, 0), (24, 1, 1, 0),
-        (32, 1, 1, 8),  # 24-bit content: at full scale every packet is an escape
+        (32, 1, 1, 8),  # 24-bit music: at full scale every packet is an escape
     ]):
         hc = hires_config(depth, ch)
-        music = music_pcm(254 * F + 1234, ch, SEED + 20 + i, depth=depth) >> quiet
-        pk = native.encode_packets(hc, music, bytes_shifted=bsf)
+        music = music_pcm(214 * F + F // 3, ch, SEED + 20 + i, depth=depth) >> quiet
+        noise = music_pcm(40 * F, ch, SEED + 24 + i, tonality=0.0, depth=depth)
+        pk = native.encode_packets(hc, music, bytes_shifted=bsf)  # ends in a partial packet
+        pk += native.encode_packets(hc, noise, bytes_shifted=bsf)  # escapes
         pk.append(pk[3][: len(pk[3]) // 3])  # truncated
         assert len(pk) == 256
-        words, args, w = shift_inputs(TorchBatchDecoder(hc, dev), pk)
+        words, sizes, w, args = hires_inputs(hc, pk)
         shifted = int((w.bs[:, 0] == bsf).sum())
-        if shifted < 200:
-            raise AssertionError(f"{depth}-bit C={ch}: only {shifted} shifted lanes")
+        if shifted < 200 or not (w.esc == 1).any():
+            raise AssertionError(f"{depth}-bit C={ch}: {shifted} shifted lanes, or no escapes")
         for signed in (False, True):
             a = raw_read(words, *args, F=F, signed=signed)
             b = raw_read_reference(words, *args, F=F, signed=signed)
             r_err = max(r_err, amax((a - b).abs()))
-        r_lines.append(f"{depth}-bit C={ch} bs={bsf}: {shifted} shifted lanes")
-    if r_err != 0:
-        raise AssertionError(f"raw reader differs from its plain version: {r_err}")
+        if r_err != 0:
+            raise AssertionError(f"{depth}-bit C={ch}: raw reader differs from its plain version")
+        e6, l6, el_ms, _, n_bad = check_walk_lpc(hc, words, sizes, w)
+        e_err, l_err = max(e_err, e6), max(l_err, l6)
+        if n_bad < 1:
+            raise AssertionError(f"{depth}-bit C={ch}: the truncated packet flagged no error")
+        r_lines.append(
+            f"{depth}-bit C={ch} bs={bsf}: {shifted} shifted lanes, "
+            f"{int((w.esc == 1).sum())} escapes, {n_bad} error lanes equal "
+            f"(plain element {el_ms:.0f} ms)"
+        )
     print(
-        f"phase 6 raw reader vs plain (B=256, F={F}, signed and unsigned, tolerance 0): "
-        f"max_abs_err={r_err}; {'; '.join(r_lines)}"
+        f"phase 6 element, lpc (9 taps) and raw reader (signed and unsigned) vs plain "
+        f"(B=256, F={F}, tolerance 0): max_abs_err element {e_err}, lpc {l_err}, raw "
+        f"reader {r_err}; {'; '.join(r_lines)}"
     )
 
     # ---- phase 7: the hi-res decode path at full size ----
@@ -427,13 +462,32 @@ def main() -> int:
         f"max {h_audio_s / min(h_host):.1f})"
     )
 
-    # ---- phase 8: the raw reader at the hi-res path's shapes, and times ----
-    hwords, hargs, hw = shift_inputs(hdec.impl, hpkts)
+    # ---- phase 8: every kernel vs plain at the hi-res path's shapes, and times ----
+    hwords, hsizes, hw, hargs = hires_inputs(hcfg, hpkts)
+    e8, l8, h_el_plain_ms, h_lpc_plain_ms, _ = check_walk_lpc(hcfg, hwords, hsizes, hw)
+    e_err, l_err = max(e_err, e8), max(l_err, l8)
     want = raw_read_reference(hwords, *hargs, F=F)
     r_err = max(r_err, amax((raw_read(hwords, *hargs, F=F) - want).abs()))
     if r_err != 0:
         raise AssertionError(f"raw reader differs from its plain version at B={n_pk}: {r_err}")
-    t_rr = cuda_times(lambda: raw_read(hwords, *hargs, F=F), reps=20)
+    h_e_args, h_lpc_in = element_args(hwords, hsizes), lanes(hw)
+    h_e_kw = element_kw(hcfg)
+    t_hel = cuda_times(lambda: walk_kernel.dense_element(*h_e_args, **h_e_kw))
+    t_hlpc = cuda_times(lambda: lpc_kernel.lpc_fir(*h_lpc_in, F=F, taps=9))
+    h_el_bound, h_lpc_bound = walk_bounds(hw, hsizes, h_lpc_in)
+    # The raw reader cold (L2 flushed by a 1 GiB write before each launch,
+    # as after the walk and the LPC on the real path) and warm (20 launches
+    # back to back over the same ~50 MB, about the size of L2).
+    flush = torch.empty(1 << 28, dtype=i32, device=dev)
+
+    def cold_read():
+        flush.zero_()
+        return timed(lambda: raw_read(hwords, *hargs, F=F))[1]
+
+    cold_read()
+    t_rr = [cold_read() for _ in range(RUNS)]
+    del flush
+    t_rr_warm = cuda_times(lambda: raw_read(hwords, *hargs, F=F), reps=20)
     t_rr_plain = cuda_times(lambda: raw_read_reference(hwords, *hargs, F=F))
     base, step, _, act, n = hargs
     fields = torch.where(act != 0, n, 0).double()
@@ -442,10 +496,14 @@ def main() -> int:
         4 * float(fields.sum()),  # two shifts, an or, a shift per field
     )
     print(
-        f"phase 8 {tag} raw reader vs plain at B={n_pk} F={F} (the pair as one "
-        f"{int(step[0])}-bit field), tolerance 0: max_abs_err {r_err}; ms {summary(t_rr)} "
-        f"(20 launches per sample) | plain ms {summary(t_rr_plain)} | bound "
-        f"{rr_bound[0]:.4f} ms by {rr_bound[1]}"
+        f"phase 8 {tag} kernels vs plain at B={n_pk} F={F} 24-bit stereo bytesShifted=1, "
+        f"tolerance 0: max_abs_err element {e_err}, lpc {l_err}, raw reader {r_err}; "
+        f"element ms {summary(t_hel)} | plain {h_el_plain_ms:.1f} | bound "
+        f"{h_el_bound[0]:.4f} by {h_el_bound[1]}; lpc taps 9 ms {summary(t_hlpc)} | plain "
+        f"{h_lpc_plain_ms:.1f} | bound {h_lpc_bound[0]:.4f} by {h_lpc_bound[1]}; raw reader "
+        f"(the pair as one {int(step[0])}-bit field) ms cold {summary(t_rr)} | warm "
+        f"{summary(t_rr_warm)} (20 launches per sample) | plain {summary(t_rr_plain)} | "
+        f"bound {rr_bound[0]:.4f} by {rr_bound[1]}"
     )
 
     # ---- phase 9: 20-bit and 32-bit decodes ----
@@ -478,6 +536,8 @@ def main() -> int:
             "launches": launches["element"], "max_abs_err": e_err,
             "ms": statistics.median(t_el), "plain_ms": el_plain_ms,
             "bound_ms": el_bound[0], "bound_by": el_bound[1], "library_ms": None,
+            "ms_hires": statistics.median(t_hel), "plain_ms_hires": h_el_plain_ms,
+            "bound_ms_hires": h_el_bound[0],
         },
         {
             "name": "lpc", "route": "cuda",
@@ -487,6 +547,8 @@ def main() -> int:
             "ms": statistics.median(t_lpc), "plain_ms": lpc_plain_ms,
             "bound_ms": lpc_bound[0], "bound_by": lpc_bound[1], "library_ms": None,
             "ms_taps32_L512": statistics.median(t_l32), "plain_ms_taps32_L512": plain_ms_32,
+            "ms_hires": statistics.median(t_hlpc), "plain_ms_hires": h_lpc_plain_ms,
+            "bound_ms_hires": h_lpc_bound[0],
         },
         {
             "name": "raw_read", "route": "cuda",
@@ -495,6 +557,7 @@ def main() -> int:
             "launches": h_launches["raw_read"], "max_abs_err": r_err,
             "ms": statistics.median(t_rr), "plain_ms": statistics.median(t_rr_plain),
             "bound_ms": rr_bound[0], "bound_by": rr_bound[1], "library_ms": None,
+            "ms_warm": statistics.median(t_rr_warm),
         },
     ]
     print(json.dumps({"kernels": kernels}))

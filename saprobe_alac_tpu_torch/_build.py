@@ -1,9 +1,9 @@
 """Build and load the port's native libraries at first use.
 
-Two shared libraries with a plain C interface, loaded with ctypes:
+Shared libraries with a plain C interface, loaded with ctypes:
 
-- ``libalac_kernels.so``: the hand-written CUDA kernels (csrc/), compiled by
-  ``nvcc`` for ``sm_90a``;
+- ``lib<name>.so``, one per hand-written CUDA kernel (csrc/<name>.cu),
+  compiled by ``nvcc`` for ``sm_90a``, all at once;
 - ``libalac_host.so``: the repo's C++ host core (native/alac_core.cpp and
   alac_encode.cpp), compiled by ``g++``; see ``native.py``.
 
@@ -25,12 +25,15 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
-_KERNEL_SOURCES = ("alac_int.cuh", "element_kernel.cu", "lpc_kernel.cu", "raw_reader_kernel.cu")
+#: One library per kernel source, each also including alac_int.cuh.
+_KERNELS = ("element_kernel", "lpc_kernel", "raw_reader_kernel")
 
 _lock = threading.Lock()
 _lib = None
@@ -52,14 +55,12 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
-def build_library(stem: str, sources: list[Path], stages) -> Path:
-    """``_build/<stem>.so``, rebuilt by ``stages(out_path)`` when the sources
-    or the commands changed.  ``stages`` gives a list of stages, each a list
-    of commands started together; a stage starts when the one before it has
-    ended.  The compilers' output goes to ``<stem>.log``."""
+def build_library(stem: str, sources: list[Path], argv) -> Path:
+    """``_build/<stem>.so``, rebuilt by ``argv(out_path)`` when the sources
+    or the command changed.  The compiler's output goes to ``<stem>.log``."""
     _OUT.mkdir(parents=True, exist_ok=True)
     so, stamp, log = (_OUT / f"{stem}{ext}" for ext in (".so", ".sha256", ".log"))
-    h = hashlib.sha256(repr(stages(so)).encode())
+    h = hashlib.sha256(" ".join(argv(so)).encode())
     for src in sources:
         h.update(src.read_bytes())
     digest = h.hexdigest()
@@ -68,27 +69,10 @@ def build_library(stem: str, sources: list[Path], stages) -> Path:
         if so.exists() and stamp.exists() and stamp.read_text() == digest:
             return so
         tmp = _OUT / f"{stem}.{os.getpid()}.tmp.so"
-        text = []
-        try:
-            for stage in stages(tmp):
-                procs = [
-                    subprocess.Popen(
-                        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-                    )
-                    for cmd in stage
-                ]
-                try:
-                    text += [proc.communicate(timeout=600)[0] for proc in procs]
-                finally:
-                    for proc in procs:
-                        proc.kill()
-                log.write_text("".join(text))
-                rcs = [proc.returncode for proc in procs]
-                if any(rcs):
-                    raise RuntimeError(f"building {stem} failed ({rcs}):\n{''.join(text)}")
-        finally:
-            for part in _OUT.glob(f"{tmp.name}.*.o"):
-                part.unlink()
+        proc = subprocess.run(argv(tmp), capture_output=True, text=True, timeout=600)
+        log.write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {stem} failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, so)
         stamp.write_text(digest)
     return so
@@ -105,47 +89,49 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _kernel_stages(out: Path) -> list[list[list[str]]]:
-    """One nvcc per source, all at once, then one link."""
-    nvcc = _nvcc()
-    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC"]
-    objs, compile_ = [], []
-    for name in _KERNEL_SOURCES:
-        if name.endswith(".cu"):
-            obj = f"{out}.{name[:-3]}.o"
-            objs.append(obj)
-            compile_.append([nvcc, *flags, "-Xptxas", "-v", "-c", "-o", obj, str(_CSRC / name)])
-    return [compile_, [[nvcc, *flags, "-shared", "-o", str(out), *objs]]]
+def _kernel_argv(name: str):
+    def argv(out: Path) -> list[str]:
+        return [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", str(out), str(_CSRC / f"{name}.cu"),
+        ]
+
+    return argv
+
+
+def _load_kernel(name: str) -> ctypes.CDLL:
+    sources = [_CSRC / "alac_int.cuh", _CSRC / f"{name}.cu"]
+    return ctypes.CDLL(str(build_library(f"lib{name}", sources, _kernel_argv(name))))
 
 
 def build_log() -> str:
-    """The compiler's output of the last kernel build (register and spill
+    """The compiler's output of the last kernel builds (register and spill
     report)."""
-    log = _OUT / "libalac_kernels.log"
-    return log.read_text() if log.exists() else ""
+    logs = [_OUT / f"lib{name}.log" for name in _KERNELS]
+    return "".join(log.read_text() for log in logs if log.exists())
 
 
 def load():
-    """The loaded kernel library; builds it first when the sources changed."""
+    """The kernel entry points; builds each kernel library first when its
+    sources changed, one nvcc per source, all started together."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        so = build_library(
-            "libalac_kernels", [_CSRC / n for n in _KERNEL_SOURCES], _kernel_stages
-        )
-        lib = ctypes.CDLL(str(so))
+        with ThreadPoolExecutor(len(_KERNELS)) as pool:
+            libs = list(pool.map(_load_kernel, _KERNELS))
+        element, lpc, raw = libs
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.alac_element_launch.restype = I
-        lib.alac_element_launch.argtypes = [
+        element.alac_element_launch.restype = I
+        element.alac_element_launch.argtypes = [
             P, I, P, P, P, P, P,  # words, W, bitpos, pact, size_bits, ns, allow_cpe
             P, P, P, P,  # rows, bitpos_out, err, meta
             I, I, I, I, I, I, I, I,  # B, F, F_pad, passes, kb, depth, pb, mb
             P,  # stream
         ]
         for taps in (9, 32):
-            fn = getattr(lib, f"alac_lpc_launch_{taps}")
+            fn = getattr(lpc, f"alac_lpc_launch_{taps}")
             fn.restype = I
             fn.argtypes = [
                 P, I, I,  # res, src_stride, src_rows
@@ -153,11 +139,17 @@ def load():
                 P, I, I,  # out, F_pad, L
                 P,  # stream
             ]
-        lib.alac_raw_read_launch.restype = I
-        lib.alac_raw_read_launch.argtypes = [
+        raw.alac_raw_read_launch.restype = I
+        raw.alac_raw_read_launch.argtypes = [
             P, I, P, P, P, P, P,  # words, W, base, step, width, act, n
             P, I, I, I,  # out, B, F_pad, is_signed
             P,  # stream
         ]
-        _lib = lib
+        _lib = SimpleNamespace(
+            libs=libs,
+            alac_element_launch=element.alac_element_launch,
+            alac_lpc_launch_9=lpc.alac_lpc_launch_9,
+            alac_lpc_launch_32=lpc.alac_lpc_launch_32,
+            alac_raw_read_launch=raw.alac_raw_read_launch,
+        )
         return _lib

@@ -50,10 +50,10 @@ class _EncSpec(ctypes.Structure):
     ] + [("coefs", ctypes.c_int16 * 32)]
 
 
-def _stages(out):
-    """One g++ command, one stage (see ``_build.build_library``)."""
-    argv = ["g++", "-O3", "-shared", "-fPIC", "-fwrapv", "-fopenmp", "-o", str(out)]
-    return [[argv + [str(s) for s in _SOURCES]]]
+def _argv(out):
+    return ["g++", "-O3", "-shared", "-fPIC", "-fwrapv", "-fopenmp", "-o", str(out)] + [
+        str(s) for s in _SOURCES
+    ]
 
 
 def load():
@@ -62,7 +62,7 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build_library("libalac_host", _SOURCES, _stages)))
+        lib = ctypes.CDLL(str(build_library("libalac_host", _SOURCES, _argv)))
         P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         lib.alac_pack_packets.restype = I32
         lib.alac_pack_packets.argtypes = [P, P, P, I32, I32, P]

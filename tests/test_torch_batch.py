@@ -119,7 +119,9 @@ def test_corrupt_packets_match_oracle_or_raise_its_error():
     assert _port_result(dec, [pkts[3], truncated]) == _oracle_result(cfg, truncated)
 
 
-@pytest.mark.parametrize("depth,C,bsf", [(16, 2, 0), (24, 2, 1), (24, 1, 1)])
+@pytest.mark.parametrize(
+    "depth,C,bsf", [(16, 2, 0), (24, 2, 1), (24, 1, 1), (20, 2, 0), (32, 2, 2)]
+)
 def test_fuzzed_packets_raise_the_oracles_class(depth, C, bsf):
     """Bit flips (in the header and anywhere), truncations and all-0xFF
     packets: the port gives the oracle's bytes or raises its own class of

@@ -32,6 +32,8 @@ F = 256
 CSRC = Path(walk_kernel.__file__).resolve().parents[1] / "csrc"
 STUB = Path(__file__).resolve().parent / "cuda_host_stub.h"
 SENTINEL = -0x2B2B2B2B
+#: (depth, bytesShifted) of the hi-res batches.
+HIRES = [(20, 0), (24, 1), (32, 1), (32, 2)]
 _LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*0,.*?>>>\(", re.S)
 
 
@@ -68,49 +70,69 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _batch(C, seed):
+def _batch(C, seed, depth=16, bsf=0):
     """Packed batch of mixed streams and corrupted packets: a CPE tag, a CCE
-    tag (unsupported element) and a truncated packet."""
-    cfg = make_config(depth=16, channels=C, frame_length=F)
+    tag (unsupported element) and a truncated packet.  At 24 and 32 bits
+    the music has its low ``bsf`` bytes in the shift region (32-bit music is
+    24-bit content: at full scale every packet would be an escape)."""
+    cfg = make_config(depth=depth, channels=C, frame_length=F)
+    quiet = 8 if depth == 32 else 0
     pk = []
     for i, (kw, ton) in enumerate([
         ({}, 0.98), ({}, 0.0), ({"order": 12}, 0.98), ({"order": 31, "mode": 1}, 0.98),
         ({"escape": True}, 0.9), ({"order": 30, "mode": 2}, 0.98),
     ]):
-        pk += native.encode_packets(cfg, music_pcm(3 * F - 37, C, 16, seed=seed + i, tonality=ton), **kw)
+        pcm = music_pcm(3 * F - 37, C, depth, seed=seed + i, tonality=ton)
+        pk += native.encode_packets(cfg, pcm >> (quiet if ton else 0), bytes_shifted=bsf, **kw)
     pk += [b"\x20" + pk[0][1:], b"\x40" + pk[2][1:], pk[1][:5]]
     words, sizes = TorchBatchDecoder(cfg, "cpu")._stage(pk)
     return cfg, words, sizes
 
 
-@pytest.mark.parametrize("C", [1, 2])
-def test_element_kernel_host_matches_plain(host_lib, C):
-    cfg, words, sizes = _batch(C, seed=10 * C)
+def _cases(*lists):
+    """pytest params over (depth, bsf) x the other axes: the 16-bit cases
+    keep ids of the other axes alone, the hi-res ones lead with depth-bsf."""
+    out = []
+    for depth, bsf in [(16, 0), *HIRES]:
+        for rest in lists:
+            ids = "-".join(str(x) for x in rest)
+            ids = ids if depth == 16 else f"{depth}-{bsf}-{ids}"
+            out.append(pytest.param(depth, bsf, *rest, id=ids))
+    return out
+
+
+@pytest.mark.parametrize("depth,bsf,C", _cases((1,), (2,)))
+def test_element_kernel_host_matches_plain(host_lib, depth, bsf, C):
+    """At every depth: chan_bits from depth and bytesShifted, the shift
+    region skipped, escapes, and the corrupted packets' error codes."""
+    cfg, words, sizes = _batch(C, 10 * C + depth - 16, depth, bsf)
     B, W = words.shape
     i32 = torch.int32
     args = (
         words, torch.zeros(B, dtype=i32), (sizes > 0).to(i32), sizes,
         torch.full((B,), F, dtype=i32), torch.full((B,), int(C > 1), dtype=i32),
     )
-    kw = dict(kb=cfg.kb, F=F, depth=16, pb_cfg=cfg.pb, mb_cfg=cfg.mb, passes=C)
+    kw = dict(kb=cfg.kb, F=F, depth=depth, pb_cfg=cfg.pb, mb_cfg=cfg.mb, passes=C)
     want = walk_kernel.dense_element_reference(*args, **kw)
     got = [torch.full_like(x, SENTINEL) for x in want]
     rc = host_lib.alac_element_launch(
         _ptr(words), W, *(_ptr(t) for t in args[1:]), *(_ptr(t) for t in got),
-        B, F, walk_kernel.f_pad(F), C, cfg.kb, 16, cfg.pb, cfg.mb, None,
+        B, F, walk_kernel.f_pad(F), C, cfg.kb, depth, cfg.pb, cfg.mb, None,
     )
     assert rc == 0
     assert int((want[2] != 0).sum()) >= 2  # the corrupted packets flag errors
+    meta, ok = want[3], want[2] == 0
+    assert (meta[walk_kernel.M_BSF][ok] == bsf).any() and (meta[walk_kernel.M_ESC][ok] == 1).any()
     for name, g, w in zip(("rows", "bitpos", "err", "meta"), got, want):
         assert torch.equal(g, w), f"{name} differs at {torch.nonzero(g != w)[:5].tolist()}"
 
 
-@pytest.mark.parametrize("C", [1, 2])
-@pytest.mark.parametrize("taps", [9, 32])
-def test_lpc_kernel_host_matches_plain(host_lib, C, taps):
-    cfg, words, sizes = _batch(C, seed=20 * C + taps)
-    w = walk_batch(words, sizes, F=F, C=C, depth=16, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
+@pytest.mark.parametrize("depth,bsf,taps,C", _cases((9, 1), (9, 2), (32, 1), (32, 2)))
+def test_lpc_kernel_host_matches_plain(host_lib, depth, bsf, taps, C):
+    cfg, words, sizes = _batch(C, 20 * C + taps + depth - 16, depth, bsf)
+    w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
     assert {0, 4, 12, 30, 31} <= set(np.unique(w.order.numpy()).tolist())
+    assert (w.cb == depth - 8 * bsf + (C > 1)).any()  # compressed lanes' chan_bits
     L = words.shape[0] * C
     lanes = lpc_lanes(
         w.order.T.reshape(L), w.mode.T.reshape(L), w.den.T.reshape(L),
