@@ -40,7 +40,30 @@ Phases, one line each (any failure raises and exits non-zero):
   9. 20-bit stereo and 32-bit stereo bytesShifted=2 decodes (B=256), bytes
      equal to the source;
  10. a truncated packet through BatchDecoder(cfg) raises the port's
-     DecodeError subclass.
+     DecodeError subclass;
+ 11. the forward LPC kernel and the encode kernel against their plain
+     versions, B=256 lanes of F=4096, tolerance 0, on inputs built as the
+     encode path builds them: music at orders 4 and 6 (9 taps, int32
+     coefficients; order 6 with mode 1), 12 and 30 (32 taps), a partial
+     packet, ns == 0, near-white noise at chan bits 17 and 32 (escape
+     suffixes of 32 bits), sparse lanes (long zero runs) and an all-zero
+     lane; the encode kernel at kb 14 and at kb 28;
+ 12. the encode path at full size: encode_packets_device(cfg, spec, pcms)
+     on the default device for the B=2048 packets of phase 4's 44.1 kHz
+     16-bit stereo PCM with EncoderSpec(channel=ChannelSpec(order=6,
+     fit=True)); the packets through BatchDecoder(cfg) on the card: bytes
+     equal to the source, no host fallback; the forward LPC and encode
+     launch counts above zero; total packet bytes within 2% of the C++ host
+     encoder's; both encoders timed by the host clock (x realtime); one
+     call under torch.profiler for the card's busy time and top kernels.  Then
+     B=256 packets of 96 kHz 24-bit stereo with bytesShifted=1 the same
+     way, and B=256 16-bit packets with pinned coefficients, whose bytes
+     equal the C++ host encoder's;
+ 13. both encode-side kernels against their plain versions at the shapes
+     phase 12 gave them (one channel: L=2048 lanes), tolerance 0, no lane
+     overflowing its row; kernel times by CUDA events (median of warm runs)
+     beside their bounds, each plain version's once; encode_walk alone
+     (the device part of phase 12's call) by CUDA events.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its path, max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
@@ -196,7 +219,7 @@ def main() -> int:
 
     import saprobe_alac_tpu_torch as port
     from saprobe_alac_tpu_torch import _build, native
-    from saprobe_alac_tpu_torch.ops import lpc_kernel, walk_kernel
+    from saprobe_alac_tpu_torch.ops import encode_device, encode_kernel, lpc_kernel, walk_kernel
     from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
     from saprobe_alac_tpu_torch.ops.epilogue import shift_reads
     from saprobe_alac_tpu_torch.ops.lpc import lpc_lanes
@@ -444,7 +467,7 @@ def main() -> int:
     hout = hdec.decode_packets(hpkts)
     h_launches = port.launch_counts()
     check_decode(hout, hpcm, 24)
-    if min(h_launches.values()) < 1:
+    if min(h_launches[k] for k in ("element", "lpc", "raw_read")) < 1:
         raise AssertionError(f"a kernel of the hi-res path never launched: {h_launches}")
     if hdec.impl.last_fallbacks:
         raise AssertionError(f"{hdec.impl.last_fallbacks} clean hi-res packets fell back")
@@ -528,6 +551,220 @@ def main() -> int:
         raise AssertionError("a truncated packet decoded without an error")
     print(f"phase 10 truncated packet through BatchDecoder(cfg): raised the port's {err_name}")
 
+    # ---- phase 11: the encode-side kernels against their plain versions (B=256) ----
+    i64 = torch.int64
+
+    def enc_lanes(cb, seed):
+        """(x (256, F) int32 on the card, ns (256,)): music, 20 lanes of
+        full-scale noise at ``cb`` bits, 10 sparse lanes (long zero runs),
+        an all-zero lane, an empty and a partial packet."""
+        g = np.random.default_rng(seed)
+        x = music_pcm(256 * F, 1, seed, depth=min(cb - 1, 24))[:, 0].reshape(256, F)
+        x[200:220] = g.integers(-(1 << (cb - 1)), 1 << (cb - 1), size=(20, F))
+        x[220:230] = np.where(g.random((10, F)) < 0.002, g.integers(-40, 40, size=(10, F)), 0)
+        x[230] = 0
+        ns = np.full(256, F, np.int32)
+        ns[231], ns[232] = 0, F // 3 + 1
+        return torch.from_numpy(x.astype(np.int32)).to(dev), torch.from_numpy(ns).to(dev)
+
+    def lpc_forward_check(args, taps):
+        """The forward LPC kernel against its plain version on one set of
+        inputs, every row: (residuals (F, L), plain ms)."""
+        got = lpc_kernel.lpc_fir(*args, F=F, taps=taps, forward=True)
+        want, ms = timed(lambda: lpc_kernel.lpc_fir_reference(*args, F=F, taps=taps, forward=True))
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"forward LPC (order {int(args[2][0])}, taps {taps}, L={args[2].numel()}) differs "
+                f"from its plain version: max {amax((got - want).abs())}"
+            )
+        return got[:F], ms
+
+    def encode_check(args, kb, W_out):
+        """The encode kernel against its plain version on one set of inputs:
+        words (zero tails included), bits and ovf: (bits, ovf, plain ms)."""
+        kw = dict(kb=kb, F=F, W_out=W_out)
+        got = encode_kernel.dense_encode(*args, **kw)
+        want, ms = timed(lambda: encode_kernel.dense_encode_reference(*args, **kw))
+        for name, a, b in zip(("words", "bits", "ovf"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"encode kernel (kb {kb}, B={a.shape[0]}): {name} differs from the plain "
+                    f"version at {torch.nonzero(a != b)[:3].tolist()}"
+                )
+        return got[1], got[2], ms
+
+    def body_words(kb, cb):
+        return (F * (9 + max(kb, cb) + 26) + 256) // 32 + 4
+
+    shared0 = torch.zeros((256, 32), dtype=i32, device=dev)
+    f_lines, res_by_cb = [], {}
+    for order, mode, cb in ((4, 0, 17), (6, 1, 17), (12, 0, 17), (30, 0, 32)):
+        x, ns11 = enc_lanes(cb, SEED + 50 + order)
+        coefs = encode_device.fit_coefs(x, ns11.to(i64), order, 9, shared0)
+        args, taps = encode_device._lpc_forward_args(x, order, 9, cb, ns11, coefs, F, mode)
+        res, ms = lpc_forward_check(args, taps)
+        res_by_cb.setdefault(cb, (res.T.contiguous(), ns11))
+        f_lines.append(f"order {order} mode {mode} cb {cb} taps {taps} (plain {ms:.0f} ms)")
+    e_lines = []
+    for kb, cb in ((14, 17), (14, 32), (28, 32)):
+        res, ns11 = res_by_cb[cb]
+        pb_local = torch.full((256,), cfg.pb, dtype=i32, device=dev)
+        args = encode_device._entropy_args(res, ns11, pb_local, cb, cfg.mb)
+        zero_runs = int((args[1][:, 220:231] > F // 16).sum())
+        bits11, ovf11, ms = encode_check(args, kb, body_words(kb, cb))
+        if int(bits11[231]) != 0 or int(ovf11.sum()) != 0 or zero_runs == 0:
+            raise AssertionError(f"phase 11 kb {kb} cb {cb}: empty lane, ovf or zero runs wrong")
+        # At kb 14 a 32-bit noise value always escapes: a 9-one prefix and 32 raw bits.
+        if (kb, cb) == (14, 32) and int(bits11[200:220].min()) < F * 41 * 9 // 10:
+            raise AssertionError("phase 11 kb 14 cb 32: the noise lanes did not escape")
+        e_lines.append(
+            f"kb {kb} cb {cb}: {int(bits11.sum()) // 8} bytes, noise lanes "
+            f"{int(bits11[200:220].min())}+ bits (plain {ms:.0f} ms)"
+        )
+    print(
+        f"phase 11 forward lpc and encode kernels vs plain (B=256, F={F}, tolerance 0): "
+        f"max_abs_err 0; forward lpc {'; '.join(f_lines)}; encode {'; '.join(e_lines)}"
+    )
+
+    # ---- phase 12: the encode path at full size ----
+    def encode_and_check(c, spec, pcm_all, label):
+        """encode_packets_device on the default device, the packets decoded
+        on the card against the source, sizes against the C++ host encoder:
+        (packets, launches, host packets, device s, host s)."""
+        depth = c.bit_depth
+        chunks = [pcm_all[i : i + F] for i in range(0, len(pcm_all), F)]
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = port.encode_packets_device(c, spec, chunks)
+        dev_s = time.perf_counter() - t0
+        counts = port.launch_counts()
+        if min(counts["lpc_forward"], counts["encode"]) < 1:
+            raise AssertionError(f"{label}: an encode kernel never launched: {counts}")
+        d = port.BatchDecoder(c)
+        check_decode(d.decode_packets(got), pcm_all, depth)
+        if d.impl.last_fallbacks:
+            raise AssertionError(f"{label}: {d.impl.last_fallbacks} encoded packets fell back")
+        t0 = time.perf_counter()
+        host_pk = native.encode_with_spec(c, spec, chunks)
+        host_s = time.perf_counter() - t0
+        n_dev, n_host = sum(map(len, got)), sum(map(len, host_pk))
+        if abs(n_dev - n_host) > 0.02 * n_host:
+            raise AssertionError(f"{label}: {n_dev} bytes against the host encoder's {n_host}")
+        return got, counts, host_pk, dev_s, host_s
+
+    fit_spec = port.EncoderSpec(channel=port.ChannelSpec(order=6, fit=True))
+    chunks16 = [pcm[i : i + F] for i in range(0, len(pcm), F)]
+    epk, e_launches, host_pk, first_s, host_enc_s = encode_and_check(cfg, fit_spec, pcm, "16-bit")
+    enc_host = host_times(lambda: port.encode_packets_device(cfg, fit_spec, chunks16), runs=3)
+    enc_med = statistics.median(enc_host)
+    n_dev, n_host = sum(map(len, epk)), sum(map(len, host_pk))
+    print(
+        f"phase 12 encode_packets_device B={n_pk} F={F} 16-bit stereo order 6 fit "
+        f"({audio_s:.1f} s of audio): decoded on the card == source PCM; launches "
+        f"{e_launches}; host fallbacks 0; {n_dev} bytes against the C++ host encoder's "
+        f"{n_host} ({100 * (n_dev - n_host) / n_host:+.3f}%)"
+    )
+    print(
+        f"phase 12 {tag} encode_packets_device B={n_pk}: first call {first_s:.3f} s; warm s "
+        f"{summary(enc_host)}; x realtime median {audio_s / enc_med:.1f}; C++ host encoder "
+        f"(one thread) {host_enc_s:.3f} s, x realtime {audio_s / host_enc_s:.1f}"
+    )
+    # One profiled call: how much of it the card is busy, and with what.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        port.encode_packets_device(cfg, fit_spec, chunks16)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    # Device-side events only (kernels and copies): an operator's row repeats
+    # its kernels' time, and the profiler's own buffer request is not work.
+    dev_us = sorted(
+        ((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+         and not e.key.startswith("Activity Buffer")),
+        reverse=True,
+    )
+    busy_ms = sum(us for us, _, _ in dev_us) / 1e3
+    top = "; ".join(f"{key[:48]} {us / 1e3:.2f} ms x{n}" for us, n, key in dev_us[:6])
+    print(
+        f"phase 12 {tag} one profiled encode_packets_device call ({prof_s * 1e3:.0f} ms under "
+        f"the profiler): device busy "
+        + (f"{busy_ms:.1f} ms in {sum(n for _, n, _ in dev_us)} kernels and copies; top: {top}"
+           if dev_us else "not measured (the profiler saw no device time)")
+    )
+    hi_pcm = hpcm[: 255 * F + 999]
+    hi_spec = port.EncoderSpec(channel=port.ChannelSpec(order=6, fit=True), bytes_shifted=1)
+    hpk, hi_launches, hi_host_pk, _, _ = encode_and_check(hcfg, hi_spec, hi_pcm, "hi-res")
+    pin_spec = port.EncoderSpec(channel=port.ChannelSpec(order=6, coefs=[160, 80, 40, 20, 10, 5]))
+    ppk, _, pin_host_pk, _, _ = encode_and_check(cfg, pin_spec, pcm[: 255 * F + 999], "pinned")
+    if ppk != pin_host_pk:
+        bad = [i for i, (a, b) in enumerate(zip(ppk, pin_host_pk)) if a != b]
+        raise AssertionError(f"pinned coefficients: packets {bad[:5]} differ from the host's")
+    print(
+        f"phase 12 B=256 96 kHz 24-bit stereo bytesShifted=1 order 6 fit: decoded == source; "
+        f"launches {hi_launches}; {sum(map(len, hpk))} bytes against the host's "
+        f"{sum(map(len, hi_host_pk))}; B=256 16-bit pinned coefficients: {len(ppk)} packets "
+        f"byte-equal to the C++ host encoder's"
+    )
+
+    # ---- phase 13: the encode-side kernels vs plain at phase 12's shapes, and times ----
+    planes = torch.from_numpy(
+        np.ascontiguousarray(pcm[: (n_pk - 1) * F].reshape(n_pk - 1, F, C).transpose(0, 2, 1))
+    ).to(dev, i32)
+    planes = torch.cat([planes, torch.zeros((1, C, F), dtype=i32, device=dev)])
+    planes[-1, :, : total - (n_pk - 1) * F] = torch.from_numpy(pcm[(n_pk - 1) * F :].T).to(dev)
+    ns13 = torch.full((n_pk,), F, dtype=i64, device=dev)
+    ns13[-1] = total - (n_pk - 1) * F
+    valid13 = torch.arange(F, device=dev)[None, :] < ns13[:, None]
+    mr13 = torch.full((n_pk,), fit_spec.mix_res, dtype=i64, device=dev)
+    (u13, _), _ = encode_device._mix_pair(
+        planes[:, 0], planes[:, 1], mr13, fit_spec.mix_bits, 17, valid13
+    )
+    coefs13 = encode_device.fit_coefs(
+        u13, ns13, 6, 9, torch.zeros((n_pk, 32), dtype=i32, device=dev)
+    )
+    f_args, f_taps = encode_device._lpc_forward_args(u13, 6, 9, 17, ns13, coefs13, F, 0)
+    res13, fwd_plain_ms = lpc_forward_check(f_args, f_taps)
+    t_fwd = cuda_times(lambda: lpc_kernel.lpc_fir(*f_args, F=F, taps=f_taps, forward=True))
+    pb13 = torch.full((n_pk,), cfg.pb, dtype=i32, device=dev)
+    e_args = encode_device._entropy_args(res13.T.contiguous(), ns13, pb13, 17, cfg.mb)
+    W13 = body_words(cfg.kb, 17)
+    bits13, ovf13, enc_plain_ms = encode_check(e_args, cfg.kb, W13)
+    if int(ovf13.sum()) != 0:
+        raise AssertionError(f"{int(ovf13.sum())} lanes overflowed their row")
+    t_enc = cuda_times(lambda: encode_kernel.dense_encode(*e_args, kb=cfg.kb, F=F, W_out=W13))
+    Fp = walk_kernel.f_pad(F)
+    fwd_bound = bound(
+        4 * (Fp * n_pk + n_pk * (7 + f_taps) + Fp * n_pk),
+        2 * 6 * float(ns13.sum()),  # MACs of the order-6 prediction
+    )
+    enc_bound = bound(
+        4 * (2 * F * n_pk + 5 * n_pk + n_pk * W13 + 2 * n_pk),  # rows in, zero-tailed rows out
+        16 * float(ns13.sum()),  # a Rice code: clz, divide, shifts, mean update
+    )
+    print(
+        f"phase 13 {tag} encode-side kernels vs plain at L={n_pk} F={F} (channel 0 of phase "
+        f"12), tolerance 0: max_abs_err 0, ovf 0; forward lpc taps {f_taps} ms {summary(t_fwd)} "
+        f"| plain {fwd_plain_ms:.1f} | bound {fwd_bound[0]:.4f} by {fwd_bound[1]}; encode ms "
+        f"{summary(t_enc)} | plain {enc_plain_ms:.1f} | bound {enc_bound[0]:.4f} by "
+        f"{enc_bound[1]}; body {int(bits13.sum()) // 8} bytes in rows of {W13} words"
+    )
+    # The device part of phase 12's call alone (planes already on the card
+    # to words and bit counts on the card); the rest of the call is host
+    # staging, the upload, the download and the per-packet cut.
+    t_walk = cuda_times(lambda: encode_device.encode_walk(
+        planes, ns13, mr13, torch.zeros((1, 32), dtype=i32, device=dev),
+        frame_length=F, num_channels=C, depth=cfg.bit_depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb,
+        elem_specs=((6, 9, (4,), 0, True),), mix_bits_s=fit_spec.mix_bits, bytes_shifted=0,
+        use_lfe_tag=True, force_escape=False, auto_escape=True,
+    ), runs=3)
+    print(
+        f"phase 13 {tag} encode_walk alone at B={n_pk} (device part of encode_packets_device, "
+        f"whose warm median is {enc_med * 1e3:.1f} ms): ms {summary(t_walk)}"
+    )
+
     kernels = [
         {
             "name": "element", "route": "cuda",
@@ -558,6 +795,22 @@ def main() -> int:
             "ms": statistics.median(t_rr), "plain_ms": statistics.median(t_rr_plain),
             "bound_ms": rr_bound[0], "bound_by": rr_bound[1], "library_ms": None,
             "ms_warm": statistics.median(t_rr_warm),
+        },
+        {
+            "name": "lpc_forward", "route": "cuda",
+            "source": "saprobe_alac_tpu_torch/csrc/lpc_kernel.cu",
+            "replaces": "saprobe_alac_tpu/ops/lpc_kernel.py:91 (forward=True)",
+            "launches": e_launches["lpc_forward"], "max_abs_err": 0,
+            "ms": statistics.median(t_fwd), "plain_ms": fwd_plain_ms,
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None,
+        },
+        {
+            "name": "encode", "route": "cuda",
+            "source": "saprobe_alac_tpu_torch/csrc/encode_kernel.cu",
+            "replaces": "saprobe_alac_tpu/ops/encode_kernel.py:81",
+            "launches": e_launches["encode"], "max_abs_err": 0,
+            "ms": statistics.median(t_enc), "plain_ms": enc_plain_ms,
+            "bound_ms": enc_bound[0], "bound_by": enc_bound[1], "library_ms": None,
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -33,13 +33,13 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
 #: One library per kernel source, each also including alac_int.cuh.
-_KERNELS = ("element_kernel", "lpc_kernel", "raw_reader_kernel")
+_KERNELS = ("element_kernel", "lpc_kernel", "raw_reader_kernel", "encode_kernel")
 
 _lock = threading.Lock()
 _lib = None
 
 #: Launches per kernel since the last reset (plain integers).
-_launches = {"element": 0, "lpc": 0, "raw_read": 0}
+_launches = {"element": 0, "lpc": 0, "raw_read": 0, "lpc_forward": 0, "encode": 0}
 
 
 def count_launch(name: str) -> None:
@@ -121,7 +121,7 @@ def load():
             return _lib
         with ThreadPoolExecutor(len(_KERNELS)) as pool:
             libs = list(pool.map(_load_kernel, _KERNELS))
-        element, lpc, raw = libs
+        element, lpc, raw, encode = libs
         P, I = ctypes.c_void_p, ctypes.c_int
         element.alac_element_launch.restype = I
         element.alac_element_launch.argtypes = [
@@ -130,8 +130,9 @@ def load():
             I, I, I, I, I, I, I, I,  # B, F, F_pad, passes, kb, depth, pb, mb
             P,  # stream
         ]
-        for taps in (9, 32):
-            fn = getattr(lpc, f"alac_lpc_launch_{taps}")
+        lpc_names = [f"alac_lpc_{d}launch_{taps}" for d in ("", "fwd_") for taps in (9, 32)]
+        for name in lpc_names:
+            fn = getattr(lpc, name)
             fn.restype = I
             fn.argtypes = [
                 P, I, I,  # res, src_stride, src_rows
@@ -145,11 +146,18 @@ def load():
             P, I, I, I,  # out, B, F_pad, is_signed
             P,  # stream
         ]
+        encode.alac_encode_launch.restype = I
+        encode.alac_encode_launch.argtypes = [
+            P, P, P, P, P, P, P,  # n_t, zr_t, act, pb_local, max_size, ns, mb
+            P, P, P,  # words, bits, ovf
+            I, I, I, I,  # B, F, W, kb
+            P,  # stream
+        ]
         _lib = SimpleNamespace(
             libs=libs,
             alac_element_launch=element.alac_element_launch,
-            alac_lpc_launch_9=lpc.alac_lpc_launch_9,
-            alac_lpc_launch_32=lpc.alac_lpc_launch_32,
             alac_raw_read_launch=raw.alac_raw_read_launch,
+            alac_encode_launch=encode.alac_encode_launch,
+            **{name: getattr(lpc, name) for name in lpc_names},
         )
         return _lib

@@ -1,13 +1,21 @@
-// LPC kernel: adaptive LPC reconstruction, decode direction.
+// LPC kernel: adaptive LPC, the decode direction (reconstruction) and the
+// encode direction (residuals).
 //
 // Replaces the TPU kernel saprobe_alac_tpu/ops/lpc_kernel.py `_lpc_kernel`
-// with forward=False (entry `lpc_fir_pallas`).  One thread runs one
-// (packet, channel) lane through predictor.go:45-684: the mode > 0 delta
+// (entry `lpc_fir_pallas`), forward=False and forward=True.  One thread runs
+// one (packet, channel) lane through predictor.go:45-684: the mode > 0 delta
 // pre-pass, prediction from a history of the last TAPS outputs with rounding
 // by den and sign extension to chan_bits, and the coefficient sign walk
 // (predictor.go:660-682) with the int16 wrap unless the order is 4/5/6/8.
 // Lane classes: 0 passes the residual through, 1 runs the adaptive FIR,
 // 2 runs order-31 delta as a fixed order-1 FIR without adaptation.
+//
+// The encode direction (FWD) is the same recurrence solved for the residual:
+// the input row is the signal x[t], the history holds past x (so only the
+// coefficients are carried from row to row), the output is
+// sext(x - prediction), and mode > 0 is a delta POST-pass on the residual
+// row (the decoder un-deltas first).  Prediction and adaptation are one code
+// for both directions.
 //
 // What bounds it on an H100: the recurrence is serial in t and each sample
 // is a dependent chain of O(TAPS) integer ops, so with L = 4096 lanes
@@ -33,7 +41,7 @@ using namespace alac;
 
 constexpr int kThreads = 128;
 
-template <int TAPS>
+template <int TAPS, bool FWD>
 __global__ void __launch_bounds__(kThreads) lpc_kernel(
     const int32_t* __restrict__ res, int S, int F_src, const int32_t* __restrict__ fir,
     const int32_t* __restrict__ order, const int32_t* __restrict__ den,
@@ -75,9 +83,9 @@ __global__ void __launch_bounds__(kThreads) lpc_kernel(
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
       const int t = t0 + j;
-      const int32_t delta_raw = cur[j];
+      const int32_t delta_raw = cur[j];  // FWD: the signal x[t]
       int32_t delta = delta_raw;
-      if (is_mode) {  // two-stage delta pre-pass (decoder.go:307-309)
+      if (!FWD && is_mode) {  // two-stage delta pre-pass (decoder.go:307-309)
         if (t >= 1) delta = sext(wadd(prev, delta_raw), cbits);
         prev = delta;
       }
@@ -95,7 +103,14 @@ __global__ void __launch_bounds__(kThreads) lpc_kernel(
       const int32_t sum1 = sshr32(wadd(static_cast<int32_t>(acc), den_half), dn);
       const bool warm = t <= ord;
       int32_t row = delta;
-      if (active) {
+      if (FWD) {
+        // The minimal representative of x - prediction mod 2^chan_bits.
+        delta = warm ? sext(wsub(delta_raw, hist[0]), cbits)
+                     : sext(wsub(wsub(delta_raw, top), sum1), cbits);
+        const int32_t r = active ? delta : delta_raw;
+        row = (is_mode && t >= 1) ? sext(wsub(r, prev), cbits) : r;  // delta post-pass
+        if (is_mode) prev = r;
+      } else if (active) {
         row = warm ? sext(wadd(delta, hist[0]), cbits) : sext(wadd(wadd(delta, top), sum1), cbits);
       }
       out[static_cast<size_t>(t) * L + l] = row;
@@ -121,19 +136,19 @@ __global__ void __launch_bounds__(kThreads) lpc_kernel(
       }
 #pragma unroll
       for (int k = TAPS - 1; k > 0; --k) hist[k] = hist[k - 1];
-      hist[0] = row;
+      hist[0] = FWD ? delta_raw : row;  // the encoder's history is its input
     }
 #pragma unroll
     for (int j = 0; j < kRows; ++j) cur[j] = nxt[j];
   }
 }
 
-template <int TAPS>
+template <int TAPS, bool FWD>
 int launch(const void* res, int S, int F_src, const void* fir, const void* order,
            const void* den, const void* cb, const void* ns, const void* wrap16,
            const void* mode, const void* coefs_t, void* out, int F_pad, int L, void* stream) {
   if (L > 0) {
-    lpc_kernel<TAPS><<<(L + kThreads - 1) / kThreads, kThreads, 0,
+    lpc_kernel<TAPS, FWD><<<(L + kThreads - 1) / kThreads, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(res), S, F_src, static_cast<const int32_t*>(fir),
         static_cast<const int32_t*>(order), static_cast<const int32_t*>(den),
@@ -146,20 +161,16 @@ int launch(const void* res, int S, int F_src, const void* fir, const void* order
 
 }  // namespace
 
-extern "C" int alac_lpc_launch_9(const void* res, int S, int F_src, const void* fir,
-                                 const void* order, const void* den, const void* cb,
-                                 const void* ns, const void* wrap16, const void* mode,
-                                 const void* coefs_t, void* out, int F_pad, int L,
-                                 void* stream) {
-  return launch<9>(res, S, F_src, fir, order, den, cb, ns, wrap16, mode, coefs_t, out,
-                   F_pad, L, stream);
-}
+#define ALAC_LPC_ENTRY(NAME, TAPS, FWD)                                                   \
+  extern "C" int NAME(const void* res, int S, int F_src, const void* fir, const void* order, \
+                      const void* den, const void* cb, const void* ns, const void* wrap16,   \
+                      const void* mode, const void* coefs_t, void* out, int F_pad, int L,    \
+                      void* stream) {                                                        \
+    return launch<TAPS, FWD>(res, S, F_src, fir, order, den, cb, ns, wrap16, mode, coefs_t,  \
+                             out, F_pad, L, stream);                                         \
+  }
 
-extern "C" int alac_lpc_launch_32(const void* res, int S, int F_src, const void* fir,
-                                  const void* order, const void* den, const void* cb,
-                                  const void* ns, const void* wrap16, const void* mode,
-                                  const void* coefs_t, void* out, int F_pad, int L,
-                                  void* stream) {
-  return launch<32>(res, S, F_src, fir, order, den, cb, ns, wrap16, mode, coefs_t, out,
-                    F_pad, L, stream);
-}
+ALAC_LPC_ENTRY(alac_lpc_launch_9, 9, false)
+ALAC_LPC_ENTRY(alac_lpc_launch_32, 32, false)
+ALAC_LPC_ENTRY(alac_lpc_fwd_launch_9, 9, true)
+ALAC_LPC_ENTRY(alac_lpc_fwd_launch_32, 32, true)

@@ -1,4 +1,4 @@
-"""Decode-side error classes of the port.
+"""Error classes of the port.
 
 The port's own copy of the decode-side classes of saprobe_alac_tpu/errors.py
 (reference errors.go:25-33, internal/alac/errors.go:25-32): the same names
@@ -16,6 +16,10 @@ class AlacError(Exception):
 
 class ConfigError(AlacError):
     """Invalid or unsupported ALAC configuration."""
+
+
+class UnsupportedSpec(ConfigError):
+    """An EncoderSpec that the C++ host encoder cannot express."""
 
 
 class DecodeError(AlacError):

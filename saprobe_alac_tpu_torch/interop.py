@@ -2,7 +2,8 @@
 
 All functions take numpy arrays (``np.asarray`` of JAX arrays) and return
 CPU torch tensors, so one implementation's walk output can feed the other's
-LPC in the differential tests.  No JAX import here.
+LPC, and one's encoder inputs the other's kernels, in the differential
+tests.  No JAX import here.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .encoder.spec import ChannelSpec, EncoderSpec
 from .ops.walk import WalkResult
 from .ops.walk_kernel import f_pad
 
@@ -43,3 +45,52 @@ def lpc_inputs_from_jax(res_t, order, mode, den, cb, ns, coefs, F: int):
     rows = np.zeros((1, f_pad(F), res_t.shape[1]), np.int32)
     rows[0, :F] = res_t
     return (_t(rows), _t(order), _t(mode), _t(den), _t(cb), _t(ns), _t(coefs))
+
+
+def encoder_spec_from_jax(spec) -> EncoderSpec:
+    """A saprobe_alac_tpu EncoderSpec -> the port's, field by field, so the
+    tests hand both packages the same choices."""
+
+    def channel(ch) -> ChannelSpec:
+        return ChannelSpec(
+            order=ch.order, den_shift=ch.den_shift, pb_factor=ch.pb_factor, mode=ch.mode,
+            coefs=list(ch.coefs), fit=ch.fit, pb_candidates=tuple(ch.pb_candidates),
+        )
+
+    return EncoderSpec(
+        channel=channel(spec.channel),
+        elements=None if spec.elements is None else [channel(e) for e in spec.elements],
+        mix_bits=spec.mix_bits, mix_res=spec.mix_res, bytes_shifted=spec.bytes_shifted,
+        escape=spec.escape, auto_escape=spec.auto_escape, use_lfe_tag=spec.use_lfe_tag,
+    )
+
+
+def lpc_forward_inputs_from_jax(x, order: int, den_shift: int, cb: int, ns, coefs,
+                                mode: int, F: int):
+    """Arguments of JAX `_lpc_forward` (x (B, F), ns (B,), coefs (B, 32);
+    order 1..30) -> the port's `lpc_fir(..., forward=True)` arguments as the
+    port's `_lpc_forward` builds them: rows (1, F_pad, B), the seven lane
+    vectors, coefs (B, taps), and ``taps``."""
+    x = np.asarray(x)
+    B = x.shape[0]
+    rows = np.zeros((1, f_pad(F), B), np.int32)
+    rows[0, :F] = x.T
+    taps = 9 if order <= 8 else 32
+    ones = np.ones(B, np.int32)
+    lane = (ones, ones * order, ones * den_shift, ones * cb, np.asarray(ns),
+            ones * int(order not in (4, 5, 6, 8)), ones * int(mode != 0))
+    return (_t(rows), *(_t(v) for v in lane), _t(np.asarray(coefs)[:, :taps])), taps
+
+
+def encode_inputs_from_jax(res, zrun, pb_local, cb: int, ns, mb: int):
+    """Residuals (B, F), their zero-run table (B, F) and lane values as JAX
+    `_entropy_body` has them -> the port's `dense_encode` arguments as it
+    builds them: n_t and zr1_t (F, B), act, pb_local, max_size, ns, mb."""
+    res = np.asarray(res, np.int64)
+    zrun = np.asarray(zrun)
+    B = res.shape[0]
+    n = np.where(res >= 0, 2 * res, -2 * res - 1).astype(np.uint32).astype(np.int32)
+    zr1 = np.concatenate([np.minimum(zrun[:, 1:], 65535), np.zeros((B, 1), zrun.dtype)], axis=1)
+    ones = np.ones(B, np.int32)
+    return (_t(np.ascontiguousarray(n.T)), _t(np.ascontiguousarray(zr1.T)), _t(ones),
+            _t(pb_local), _t(ones * cb), _t(ns), _t(ones * mb))

@@ -3,7 +3,7 @@ native/alac_encode.cpp), built by g++ into ``_build/`` at first use.
 
 The port's host side: the threaded packer that stages a batch as big-endian
 words, the exact host decode for packets the device flags, and the packet
-encoder used to make fixtures.  ``-fwrapv`` is required: the codec relies
+encoder (fixtures, and the host backend of `encoder.encode_packets`).  ``-fwrapv`` is required: the codec relies
 on wrapping int32 arithmetic as Go does.  A failed build raises.
 """
 
@@ -17,6 +17,8 @@ from typing import Sequence
 import numpy as np
 
 from ._build import build_library
+from .encoder.spec import ChannelSpec, EncoderSpec
+from .errors import UnsupportedSpec
 
 _NATIVE = Path(__file__).resolve().parents[1] / "native"
 _SOURCES = [_NATIVE / "alac_core.cpp", _NATIVE / "alac_encode.cpp"]
@@ -26,8 +28,6 @@ _SOURCES = [_NATIVE / "alac_core.cpp", _NATIVE / "alac_encode.cpp"]
 GUARD_WORDS = 2
 
 _BYTES_PER_SAMPLE = {16: 2, 20: 3, 24: 3, 32: 4}
-#: Initial LPC coefficients for blocks the encoder's fit rejects.
-_DEFAULT_COEFS = [160, 80, 40, 20, 10, 5, 3, 2] * 4
 
 _lock = threading.Lock()
 _lib = None
@@ -118,36 +118,71 @@ def decode_batch(config, packets: Sequence[bytes]):
     return out, lens, errs
 
 
-def encode_packets(config, pcm: np.ndarray, *, order: int = 4, mode: int = 0,
-                   escape: bool = False, bytes_shifted: int = 0) -> list[bytes]:
-    """Encode (n, channels) integer PCM into packets of ``frame_length``
-    samples (the last one partial), with the JAX package encoder's default
-    spec otherwise (den_shift 9, pb_factor 4, mix_bits 1, mix_res 1).  The
-    core fits each channel's initial LPC coefficients per packet; near-white
-    blocks become escape elements when that is smaller, and ``escape``
-    forces them.  ``bytes_shifted`` (0..2) moves the low bytes of 24/32-bit
-    samples into the shift region; the core ignores it below 24 bits and
-    raises it to 1 for a 32-bit pair (native/alac_encode.cpp:292-293)."""
-    if pcm.ndim != 2 or pcm.shape[1] != config.num_channels:
-        raise ValueError(f"pcm must be (n, {config.num_channels}), got {pcm.shape}")
-    spec = _EncSpec(
-        order=order, den_shift=9, pb_factor=4, mode=mode, mix_bits=1, mix_res=1,
-        bytes_shifted=bytes_shifted, force_escape=int(escape), auto_escape=1, use_lfe_tag=1,
-        fit=1,
-        coefs=(ctypes.c_int16 * 32)(*_DEFAULT_COEFS[: order if order < 31 else 0]),
-    )
+def _encode_blocks(config, c_spec: _EncSpec, blocks) -> list[bytes]:
+    """One packet per (ns, channels) block through the core's encoder."""
     cfg = _config(config)
     lib = load()
     out = []
-    for start in range(0, pcm.shape[0], config.frame_length):
-        block = np.ascontiguousarray(pcm[start : start + config.frame_length], dtype=np.int32)
+    for block in blocks:
+        block = np.ascontiguousarray(block, dtype=np.int32)
+        if block.ndim != 2 or block.shape[1] != config.num_channels:
+            raise ValueError(f"pcm must be (n, {config.num_channels}), got {block.shape}")
         ns, channels = block.shape
         cap = ns * channels * 8 + 4096 * channels
         buf = np.empty(cap, dtype=np.uint8)
         n = lib.alac_encode_packet(
-            ctypes.byref(cfg), ctypes.byref(spec), block.ctypes.data, ns, buf.ctypes.data, cap
+            ctypes.byref(cfg), ctypes.byref(c_spec), block.ctypes.data, ns, buf.ctypes.data, cap
         )
         if n < 0:
             raise ValueError(f"native encode failed with code {n}")
         out.append(buf[:n].tobytes())
     return out
+
+
+def encode_packets(config, pcm: np.ndarray, *, order: int = 4, mode: int = 0,
+                   escape: bool = False, bytes_shifted: int = 0) -> list[bytes]:
+    """Encode (n, channels) integer PCM into packets of ``frame_length``
+    samples (the last one partial) under the default `EncoderSpec` but for
+    the keywords (so den_shift 9, pb_factor 4, mix_bits 1, mix_res 1).  The
+    core fits each channel's initial LPC coefficients per packet; near-white
+    blocks become escape elements when that is smaller, and ``escape``
+    forces them.  ``bytes_shifted`` (0..2) moves the low bytes of 24/32-bit
+    samples into the shift region; the core ignores it below 24 bits and
+    raises it to 1 for a 32-bit pair (native/alac_encode.cpp:292-293)."""
+    if pcm.ndim != 2:
+        raise ValueError(f"pcm must be (n, {config.num_channels}), got {pcm.shape}")
+    spec = EncoderSpec(channel=ChannelSpec(order=order, mode=mode), escape=escape,
+                       bytes_shifted=bytes_shifted)
+    F = config.frame_length
+    return encode_with_spec(config, spec, (pcm[s : s + F] for s in range(0, pcm.shape[0], F)))
+
+
+def encode_with_spec(config, spec: EncoderSpec, blocks) -> list[bytes]:
+    """One packet per (ns, channels) block, encoded by the core under an
+    `EncoderSpec` (the counterpart of saprobe_alac_tpu.native.encode_packet).
+    With ``fit`` on and no pinned coefficients the core fits each channel
+    per packet (float64 Levinson-Durbin) and falls back to the default
+    coefficients on a degenerate block.  The core takes one channel spec
+    for all elements, one pbFactor and int16 coefficients: a spec beyond
+    that raises `UnsupportedSpec` rather than encoding something else."""
+    ch = spec.channel
+    if spec.elements is not None:
+        ch = spec.element_specs(config.num_channels)[0]
+        if any(e != ch for e in spec.elements):
+            raise UnsupportedSpec("the host core takes one ChannelSpec for every element")
+    if len(ch.pb_candidates) > 1:
+        raise UnsupportedSpec("the host core takes one pbFactor, not pb_candidates")
+    pb_factor = ch.pb_candidates[0] if ch.pb_candidates else ch.pb_factor
+    coefs = ch.initial_coefs(None)
+    if not 0 <= ch.order <= 31 or not 0 <= pb_factor <= 7:
+        raise UnsupportedSpec(f"order {ch.order} or pbFactor {pb_factor} out of range")
+    if any(not -(1 << 15) <= c < (1 << 15) for c in coefs):
+        raise UnsupportedSpec("the host core takes int16 initial coefficients")
+    c_spec = _EncSpec(
+        order=ch.order, den_shift=ch.den_shift, pb_factor=pb_factor, mode=ch.mode,
+        mix_bits=max(spec.mix_bits, 0), mix_res=spec.mix_res,
+        bytes_shifted=spec.bytes_shifted, force_escape=int(spec.escape),
+        auto_escape=int(spec.auto_escape), use_lfe_tag=int(spec.use_lfe_tag),
+        fit=int(ch.fit and not ch.coefs), coefs=(ctypes.c_int16 * 32)(*coefs),
+    )
+    return _encode_blocks(config, c_spec, blocks)

@@ -1,7 +1,8 @@
-"""LPC kernel: adaptive LPC reconstruction, one (packet, channel) per lane.
+"""LPC kernel: adaptive LPC, one (packet, channel) per lane, in the decode
+direction (reconstruction) and the encode direction (``forward=True``).
 
 Counterpart of saprobe_alac_tpu/ops/lpc_kernel.py `lpc_fir_pallas`
-(`_lpc_kernel`, decode direction).  `lpc_fir` launches the CUDA kernel
+(`_lpc_kernel`, both directions).  `lpc_fir` launches the CUDA kernel
 (csrc/lpc_kernel.cu) for CUDA tensors and runs the plain PyTorch version,
 `lpc_fir_reference`, for CPU tensors.
 
@@ -16,6 +17,13 @@ den 0 and no adaptation.  ``mode`` != 0 runs the two-stage delta pre-pass
 first.  Returns out (F_pad, L) int32, F_pad = F rounded up to 16; rows at
 t >= ns carry the residual (trimmed by the caller).  Parity: predictor.go:
 45-684, decoder.go:307-309.
+
+With ``forward=True`` the rows of ``res`` are the signal x[t] and the output
+rows are its residuals: the history is fed the input, so only the
+coefficients are carried; fir_code 0 lanes and rows at t == 0 or t >= ns pass
+x through; ``mode`` != 0 runs the delta as a POST-pass on the residual row
+(the stream carries delta'd residuals, which the decoder un-deltas first).
+The encoder sends orders 1..30 here as class 1 and never class 2.
 """
 
 from __future__ import annotations
@@ -29,13 +37,13 @@ from .walk_kernel import f_pad
 TAPS = (9, 32)
 
 
-def lpc_fir(res, fir_code, order, den, cb, ns, wrap16, mode, coefs, *, F, taps):
+def lpc_fir(res, fir_code, order, den, cb, ns, wrap16, mode, coefs, *, F, taps, forward=False):
     """coefs: (L, 32) or (L, taps) int32 initial coefficients."""
     if taps not in TAPS:
         raise ValueError(f"taps must be 9 or 32, got {taps}")
     lane = (fir_code, order, den, cb, ns, wrap16, mode)
     if res.device.type == "cpu":
-        return lpc_fir_reference(res, *lane, coefs, F=F, taps=taps)
+        return lpc_fir_reference(res, *lane, coefs, F=F, taps=taps, forward=forward)
     if res.device.type != "cuda":
         raise ValueError(f"no LPC kernel for device {res.device}")
     P, F_src, S = res.shape
@@ -51,7 +59,7 @@ def lpc_fir(res, fir_code, order, den, cb, ns, wrap16, mode, coefs, *, F, taps):
         raise ValueError(f"lane inputs must be ({L},), coefs ({L}, >= {taps})")
     out = torch.empty((Fp, L), dtype=torch.int32, device=res.device)
     lib = _build.load()
-    fn = getattr(lib, f"alac_lpc_launch_{taps}")
+    fn = getattr(lib, f"alac_lpc_{'fwd_' if forward else ''}launch_{taps}")
     with torch.cuda.device(res.device):
         stream = torch.cuda.current_stream(res.device).cuda_stream
         rc = fn(
@@ -60,7 +68,7 @@ def lpc_fir(res, fir_code, order, den, cb, ns, wrap16, mode, coefs, *, F, taps):
         )
     if rc != 0:
         raise RuntimeError(f"LPC kernel launch failed: CUDA error {rc}")
-    _build.count_launch("lpc")
+    _build.count_launch("lpc_forward" if forward else "lpc")
     return out
 
 
@@ -68,10 +76,12 @@ def _sign(x):
     return (x > 0).long() - (x < 0).long()
 
 
-def lpc_fir_reference(res, fir_code, order, den, cb, ns, wrap16, mode, coefs, *, F, taps):
+def lpc_fir_reference(res, fir_code, order, den, cb, ns, wrap16, mode, coefs, *, F, taps,
+                      forward=False):
     """Plain PyTorch LPC: a loop over t with the (L, taps) history, as the
-    kernel's row step (lpc_kernel.py:155-248).  Internals run in int64
-    holding int32 values, wrapped after every step that can overflow."""
+    kernel's row step (lpc_kernel.py:155-248), in either direction.
+    Internals run in int64 holding int32 values, wrapped after every step
+    that can overflow."""
     I = torch.int64
     P, F_src, S = res.shape
     L = P * S
@@ -99,11 +109,13 @@ def lpc_fir_reference(res, fir_code, order, den, cb, ns, wrap16, mode, coefs, *,
     prev = torch.zeros(L, dtype=I, device=dev)
     out = torch.empty((Fp, L), dtype=torch.int32, device=dev)
     for t in range(Fp):
-        delta_raw = rs[t]
-        # mode > 0 two-stage delta pre-pass (decoder.go:307-309).
-        d0 = sext(wrap(prev + delta_raw), cb)
-        delta = torch.where(is_mode & (t >= 1), d0, delta_raw)
-        prev = torch.where(is_mode, delta, prev)
+        delta_raw = rs[t]  # forward: the signal x[t]
+        delta = delta_raw
+        if not forward:
+            # mode > 0 two-stage delta pre-pass (decoder.go:307-309).
+            d0 = sext(wrap(prev + delta_raw), cb)
+            delta = torch.where(is_mode & (t >= 1), d0, delta_raw)
+            prev = torch.where(is_mode, delta, prev)
 
         active = (fir >= 1) & (t < ns) & (t >= 1)
         top = torch.where(in_hist, torch.gather(hist, 1, tsel)[:, 0], 0)
@@ -113,9 +125,19 @@ def lpc_fir_reference(res, fir_code, order, den, cb, ns, wrap16, mode, coefs, *,
         acc = wrap((wrap(coefs * diff) * tmask).sum(1))
         sum1 = sshr(wrap(acc + den_half), den)
         warm = t <= order
-        fir_val = sext(wrap(delta + top + sum1), cb)
-        warm_val = sext(wrap(delta + hist[:, 0]), cb)
-        row = torch.where(active, torch.where(warm, warm_val, fir_val), delta)
+        if forward:
+            # The minimal representative of x - prediction mod 2^chan_bits,
+            # then the mode > 0 delta post-pass on the residual row.
+            fir_delta = sext(wrap(delta_raw - top - sum1), cb)
+            warm_delta = sext(wrap(delta_raw - hist[:, 0]), cb)
+            delta = torch.where(warm, warm_delta, fir_delta)
+            r = torch.where(active, delta, delta_raw)
+            row = torch.where(is_mode & (t >= 1), sext(wrap(r - prev), cb), r)
+            prev = torch.where(is_mode, r, prev)
+        else:
+            fir_val = sext(wrap(delta + top + sum1), cb)
+            warm_val = sext(wrap(delta + hist[:, 0]), cb)
+            row = torch.where(active, torch.where(warm, warm_val, fir_val), delta)
         out[t] = row.to(torch.int32)
 
         # Coefficient adaptation (predictor.go:660-682): the sign walk as
@@ -132,5 +154,6 @@ def lpc_fir_reference(res, fir_code, order, den, cb, ns, wrap16, mode, coefs, *,
         newc = torch.where(wrap16[:, None], sext16(newc), newc)
         coefs = torch.where(adapt, newc, coefs)
 
-        hist = torch.cat([row[:, None], hist[:, :-1]], dim=1)
+        fed = delta_raw if forward else row  # the encoder's history is its input
+        hist = torch.cat([fed[:, None], hist[:, :-1]], dim=1)
     return out

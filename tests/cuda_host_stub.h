@@ -11,6 +11,7 @@
 #include <cstddef>
 #include <cstdint>
 
+using std::max;
 using std::min;
 
 #define __global__

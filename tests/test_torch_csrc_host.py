@@ -22,8 +22,10 @@ import torch
 from conftest import make_config, music_pcm
 
 from saprobe_alac_tpu_torch import native
-from saprobe_alac_tpu_torch.ops import lpc_kernel, walk_kernel
+from saprobe_alac_tpu_torch.interop import encode_inputs_from_jax
+from saprobe_alac_tpu_torch.ops import encode_kernel, lpc_kernel, walk_kernel
 from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
+from saprobe_alac_tpu_torch.ops.encode_device import _zero_run_table
 from saprobe_alac_tpu_torch.ops.raw_reader import raw_read_reference
 from saprobe_alac_tpu_torch.ops.lpc import lpc_lanes
 from saprobe_alac_tpu_torch.ops.walk import walk_batch
@@ -34,7 +36,7 @@ STUB = Path(__file__).resolve().parent / "cuda_host_stub.h"
 SENTINEL = -0x2B2B2B2B
 #: (depth, bytesShifted) of the hi-res batches.
 HIRES = [(20, 0), (24, 1), (32, 1), (32, 2)]
-_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*0,.*?>>>\(", re.S)
+_LAUNCH = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<(.*?),\s*(\w+),\s*0,.*?>>>\(", re.S)
 
 
 def _host_source(text: str) -> str:
@@ -54,7 +56,8 @@ def host_lib(tmp_path_factory):
         pytest.skip("g++ is not installed")
     tmp = tmp_path_factory.mktemp("csrc_host")
     srcs = []
-    for name in ("element_kernel.cu", "lpc_kernel.cu", "raw_reader_kernel.cu"):
+    for name in ("element_kernel.cu", "lpc_kernel.cu", "raw_reader_kernel.cu",
+                 "encode_kernel.cu"):
         src = tmp / (name[:-3] + ".cpp")
         src.write_text(_host_source((CSRC / name).read_text()))
         srcs.append(str(src))
@@ -177,3 +180,118 @@ def test_raw_reader_kernel_host_matches_plain(host_lib, width, signed):
     assert rc == 0
     assert want.any() and (want[:Fr] != 0).sum(0).max() > 100
     assert torch.equal(got, want), f"differs at {torch.nonzero(got != want)[:5].tolist()}"
+
+
+def _forward_lanes(taps, seed):
+    """Forward-LPC inputs, one regime per group of lanes: every order the
+    variant serves (int32 coefficients at 4, 5, 6, 8), mode 0 and 1, chan
+    bits 16 to 32, full, partial and empty packets, bypass lanes (class 0),
+    and full-scale noise at 32 bits (wrapping differences)."""
+    rng = np.random.default_rng(seed)
+    orders = [1, 2, 4, 5, 6, 8] if taps == 9 else [1, 4, 8, 9, 12, 17, 30]
+    L = 8 * len(orders)
+    order = np.repeat(orders, 8).astype(np.int32)
+    cb = np.tile([16, 17, 24, 32], L // 4).astype(np.int32)
+    mode = np.tile([0, 0, 0, 0, 1, 1, 1, 1], L // 8).astype(np.int32)
+    ns = np.full(L, F, np.int32)
+    ns[3::8] = rng.integers(2, F, size=L // 8)
+    ns[5] = 0
+    fir = np.ones(L, np.int32)
+    fir[6::16] = 0
+    x = np.zeros((F, L), np.int64)
+    for l in range(L):
+        depth = min(int(cb[l]), 24)
+        x[:, l] = music_pcm(F, 1, depth, seed=seed + l, tonality=0.9)[:, 0]
+    noisy = (cb == 32) & (np.arange(L) % 8 == 7)
+    x[:, noisy] = rng.integers(-(2**31), 2**31, size=(F, int(noisy.sum())))
+    coefs = np.zeros((L, 32), np.int32)
+    for l in range(L):
+        coefs[l, : order[l]] = rng.integers(-2000, 2000, size=order[l])
+    rows = np.zeros((1, walk_kernel.f_pad(F), L), np.int32)
+    rows[0, :F] = x.astype(np.int32)
+    wrap16 = (~np.isin(order, [4, 5, 6, 8])).astype(np.int32)
+    den = np.full(L, 9, np.int32)
+    return [torch.from_numpy(a) for a in (rows, fir, order, den, cb, ns, wrap16, mode, coefs)]
+
+
+@pytest.mark.parametrize("taps", [9, 32])
+def test_lpc_forward_kernel_host_matches_plain(host_lib, taps):
+    lanes = _forward_lanes(taps, 300 + taps)
+    want = lpc_kernel.lpc_fir_reference(*lanes, F=F, taps=taps, forward=True)
+    got = torch.full_like(want, SENTINEL)
+    rows = lanes[0]
+    L = rows.shape[2]
+    coefs_t = lanes[-1][:, :taps].T.contiguous()
+    rc = getattr(host_lib, f"alac_lpc_fwd_launch_{taps}")(
+        _ptr(rows), L, rows.shape[1], *(_ptr(t) for t in lanes[1:-1]), _ptr(coefs_t), _ptr(got),
+        walk_kernel.f_pad(F), L, None,
+    )
+    assert rc == 0
+    assert (want[:F] != rows[0, :F]).any()  # residuals, not the signal passed through
+    assert torch.equal(got, want), f"differs at {torch.nonzero(got != want)[:5].tolist()}"
+
+
+def _encode_lanes(seed, cb):
+    """Residual regimes of the entropy coder, 16 lanes each: small values
+    (adaptive k), dense zero runs, all zero (the 65535-run code and zmode),
+    large values (escape prefix and a cb-wide suffix), full-scale values at
+    the given cb; with partial and empty packets and inactive lanes."""
+    rng = np.random.default_rng(seed)
+    B = 80
+    res = np.zeros((B, F), np.int64)
+    res[:16] = rng.integers(-50, 50, (16, F))
+    res[16:32] = np.where(rng.random((16, F)) < 0.7, 0, rng.integers(-30, 30, (16, F)))
+    res[48:64] = rng.integers(-(2**15), 2**15, (16, F))
+    half = 1 << (cb - 1)
+    res[64:] = rng.integers(-half + 1, half, (16, F))
+    ns = np.full(B, F, np.int32)
+    ns[[3, 20, 50]] = [17, 3, 1]
+    ns[[5, 35]] = 0
+    act = np.ones(B, np.int32)
+    act[[7, 70]] = 0
+    return res, ns, act
+
+
+@pytest.mark.parametrize("kb,cb,pb,mb", [(14, 17, 40, 10), (14, 32, 40, 10), (10, 25, 10, 40),
+                                         (1, 17, 40, 10), (28, 32, 40, 10), (32, 24, 40, 10)])
+def test_encode_kernel_host_matches_plain(host_lib, kb, cb, pb, mb):
+    res, ns, act = _encode_lanes(1000 + kb + cb, cb)
+    B = res.shape[0]
+    zrun = _zero_run_table(torch.from_numpy(res.astype(np.int32)), torch.from_numpy(ns)).numpy()
+    args = list(encode_inputs_from_jax(res, zrun, np.full(B, pb, np.int32), cb, ns, mb))
+    args[2] = torch.from_numpy(act)
+    W = (F * (9 + max(kb, cb) + 26) + 256) // 32 + 4
+    want = encode_kernel.dense_encode_reference(*args, kb=kb, F=F, W_out=W)
+    words = torch.zeros((B, W), dtype=torch.int32)  # the wrapper's zeroed buffer
+    bits = torch.full((B,), SENTINEL, dtype=torch.int32)
+    ovf = torch.full((B,), SENTINEL, dtype=torch.int32)
+    rc = host_lib.alac_encode_launch(
+        *(_ptr(t) for t in args), _ptr(words), _ptr(bits), _ptr(ovf), B, F, W, kb, None
+    )
+    assert rc == 0
+    assert int(want[1].max()) > 9 * F and not want[2].any()
+    assert (want[1][[5, 7, 35, 70]] == 0).all()  # empty and inactive lanes emit nothing
+    assert torch.equal(bits, want[1]) and torch.equal(ovf, want[2])
+    assert torch.equal(words, want[0]), f"differs at {torch.nonzero(words != want[0])[:5].tolist()}"
+
+
+def test_encode_kernel_host_flags_a_short_row(host_lib):
+    """A row too short for the stream: nothing is stored past it, and ovf
+    is set, in the kernel and in its plain version."""
+    res, ns, _ = _encode_lanes(77, 17)
+    B, W = res.shape[0], 40
+    zrun = _zero_run_table(torch.from_numpy(res.astype(np.int32)), torch.from_numpy(ns)).numpy()
+    args = encode_inputs_from_jax(res, zrun, np.full(B, 40, np.int32), 17, ns, 10)
+    want = encode_kernel.dense_encode_reference(*args, kb=14, F=F, W_out=W)
+    guard = 8
+    words = torch.zeros((B * W + guard,), dtype=torch.int32)
+    bits = torch.zeros(B, dtype=torch.int32)
+    ovf = torch.zeros(B, dtype=torch.int32)
+    rc = host_lib.alac_encode_launch(
+        *(_ptr(t) for t in args), _ptr(words), _ptr(bits), _ptr(ovf), B, F, W, 14, None
+    )
+    assert rc == 0 and ovf.any() and not ovf.all()
+    assert torch.equal(bits, want[1]) and torch.equal(ovf, want[2])
+    assert not words[B * W :].any()
+    fits = ovf == 0
+    assert torch.equal(words[: B * W].view(B, W)[fits], want[0][fits])
