@@ -17,7 +17,7 @@
 // dense input schedule, output ring, freeze and drain exist because its
 // vector unit cannot write at a per-lane position; a GPU thread can, so none
 // of it is carried over, the quotient is a plain unsigned divide, and every
-// kb in 1..32 is taken.
+// kb > 0 is taken.
 //
 // What bounds it on an H100: each sample is a dependent chain (mean -> k ->
 // divide -> emit -> mean) of some tens of integer ops, serial in t, so the

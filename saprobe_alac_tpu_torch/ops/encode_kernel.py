@@ -15,7 +15,8 @@ each lane's stream from bit 31 of its word 0 (big-endian bit order), every
 bit past ``bits`` zero (callers add whole rows into a packet at a bit
 offset); inactive lanes and ``ns == 0`` report 0 bits.  ``ovf`` flags a
 stream longer than the row, which a ``W_out`` sized for the worst case
-(9 + max(kb, max_size) + 26 bits per sample) rules out.  Any kb in 1..32.
+(9 + max(kb, max_size) + 26 bits per sample) rules out.  Any kb > 0
+(past 32 it acts as 32).
 Parity: the inverse of golomb.go:112-253, as encode_device.py:230-311.
 """
 
@@ -30,8 +31,9 @@ _M32 = 0xFFFFFFFF
 
 
 def dense_encode(n_t, zr_t, act, pb_local, max_size, ns, mb, *, kb, F, W_out):
-    if not 1 <= kb <= 32:
-        raise ValueError(f"kb must be in 1..32, got {kb}")
+    if kb < 1:
+        raise ValueError(f"kb must be positive, got {kb}")
+    kb = min(kb, 32)  # k never passes 23 and the run mask is 32 bits wide
     lane = (act, pb_local, max_size, ns, mb)
     if n_t.device.type == "cpu":
         return dense_encode_reference(n_t, zr_t, *lane, kb=kb, F=F, W_out=W_out)

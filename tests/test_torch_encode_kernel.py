@@ -111,10 +111,14 @@ def test_dense_encode_matches_jax(case, ref):
 
 
 def test_dense_encode_rejects_kb_out_of_range():
-    res_np, ns_np = _uniform(8, -3, 3, 5)
+    """kb == 0 streams belong to the host encoder; past 32, kb acts as 32
+    (the run mask is 32 bits wide and k never reaches it)."""
+    res_np, ns_np = _uniform(8, -300, 300, 5)
     args = interop.encode_inputs_from_jax(
         res_np, np.zeros_like(res_np), np.full(B, 40, np.int32), 17, ns_np, 10
     )
-    for kb in (0, 33):
+    for kb in (0, -1):
         with pytest.raises(ValueError):
             dense_encode(*args, kb=kb, F=8, W_out=64)
+    at32, at200 = (dense_encode(*args, kb=kb, F=8, W_out=64) for kb in (32, 200))
+    assert all(np.array_equal(a.numpy(), b.numpy()) for a, b in zip(at32, at200))
