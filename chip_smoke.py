@@ -23,7 +23,9 @@ Phases, one line each (any failure raises and exits non-zero):
      lanes), tolerance 0; kernel times by CUDA events (median of warm runs),
      each plain version's once;
   6. all three kernels against their plain versions, B=256 packets of
-     F=4096, tolerance 0, on the inputs the decode path gives them: 24-bit
+     F=1024 (a plain element walk costs its op launches per row, and phases
+     3, 5 and 8 hold the kernels at F=4096), tolerance 0, on the inputs the
+     decode path gives them: 24-bit
      stereo bytesShifted=1, 32-bit stereo bytesShifted=2, 24-bit mono and
      32-bit mono bytesShifted=1, each batch music ending in a partial
      packet, near-white noise (escapes of 24- and 32-bit samples) and a
@@ -42,12 +44,13 @@ Phases, one line each (any failure raises and exits non-zero):
  10. a truncated packet through BatchDecoder(cfg) raises the port's
      DecodeError subclass;
  11. the forward LPC kernel and the encode kernel against their plain
-     versions, B=256 lanes of F=4096, tolerance 0, on inputs built as the
-     encode path builds them: music at orders 4 and 6 (9 taps, int32
-     coefficients; order 6 with mode 1), 12 and 30 (32 taps), a partial
-     packet, ns == 0, near-white noise at chan bits 17 and 32 (escape
-     suffixes of 32 bits), sparse lanes (long zero runs) and an all-zero
-     lane; the encode kernel at kb 14 and at kb 28;
+     versions, 256 lanes of F=4096 a regime, tolerance 0, on inputs built
+     as the encode path builds them: music at orders 4 and 6 (9 taps, int32
+     coefficients; order 6 with mode 1; one call of 512 lanes), 12 and 30
+     (32 taps, one call), a partial packet, ns == 0, near-white noise at
+     chan bits 17 and 32 (escape suffixes of 32 bits), sparse lanes (long
+     zero runs) and an all-zero lane; the encode kernel at kb 14 (both
+     widths in one call) and at kb 28;
  12. the encode path at full size: encode_packets_device(cfg, spec, pcms)
      on the default device for the B=2048 packets of phase 4's 44.1 kHz
      16-bit stereo PCM with EncoderSpec(channel=ChannelSpec(order=6,
@@ -59,11 +62,13 @@ Phases, one line each (any failure raises and exits non-zero):
      B=256 packets of 96 kHz 24-bit stereo with bytesShifted=1 the same
      way, and B=256 16-bit packets with pinned coefficients, whose bytes
      equal the C++ host encoder's;
- 13. both encode-side kernels against their plain versions at the shapes
-     phase 12 gave them (one channel: L=2048 lanes), tolerance 0, no lane
-     overflowing its row; kernel times by CUDA events (median of warm runs)
-     beside their bounds, each plain version's once; encode_walk alone
-     (the device part of phase 12's call) by CUDA events.
+ 13. both encode-side kernels against their plain versions on the inputs of
+     every launch of one more such call (collected by the path itself: two
+     forward LPC and two encode launches of L=2048 lanes), tolerance 0, no
+     lane overflowing its row; kernel times by CUDA events (median of warm
+     runs) beside their bounds, each plain version's once per launch;
+     encode_walk alone (the device part of the call) on the call's own
+     arguments, by CUDA events.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its path, max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
@@ -249,21 +254,21 @@ def main() -> int:
     stager = TorchBatchDecoder(cfg, dev)
 
     def element_kw(c):
-        return dict(kb=c.kb, F=F, depth=c.bit_depth, pb_cfg=c.pb, mb_cfg=c.mb,
+        return dict(kb=c.kb, F=c.frame_length, depth=c.bit_depth, pb_cfg=c.pb, mb_cfg=c.mb,
                     passes=c.num_channels)
 
-    def element_args(words, sizes, channels=C):
+    def element_args(words, sizes, channels=C, frame=F):
         """The element kernel's inputs as walk_batch builds them."""
         B = words.shape[0]
         return (
             words, torch.zeros(B, dtype=i32, device=dev), (sizes > 0).to(i32), sizes,
-            torch.full((B,), F, dtype=i32, device=dev),
+            torch.full((B,), frame, dtype=i32, device=dev),
             torch.full((B,), int(channels > 1), dtype=i32, device=dev),
         )
 
     def walk(c, words, sizes):
-        return walk_batch(words, sizes, F=F, C=c.num_channels, depth=c.bit_depth, pb=c.pb,
-                          mb=c.mb, kb=c.kb)
+        return walk_batch(words, sizes, F=c.frame_length, C=c.num_channels, depth=c.bit_depth,
+                          pb=c.pb, mb=c.mb, kb=c.kb)
 
     def lanes(w, channels=C):
         """The LPC kernel's inputs as the main path builds them."""
@@ -278,13 +283,13 @@ def main() -> int:
         """The element kernel and the 9-tap LPC kernel against their plain
         versions on one batch: (element err, LPC err, element plain ms, LPC
         plain ms, error lanes)."""
-        ch = c.num_channels
-        args, kw = element_args(words, sizes, ch), element_kw(c)
+        ch, Fc = c.num_channels, c.frame_length
+        args, kw = element_args(words, sizes, ch, Fc), element_kw(c)
         want, el_ms = timed(lambda: walk_kernel.dense_element_reference(*args, **kw))
         e = element_diff(walk_kernel.dense_element(*args, **kw), want, walk_kernel.M_NS)
         lin = lanes(w, ch)
-        want_l, lpc_ms = timed(lambda: lpc_kernel.lpc_fir_reference(*lin, F=F, taps=9))
-        lp = lpc_diff(lpc_kernel.lpc_fir(*lin, F=F, taps=9), want_l, w.ns.repeat(ch))
+        want_l, lpc_ms = timed(lambda: lpc_kernel.lpc_fir_reference(*lin, F=Fc, taps=9))
+        lp = lpc_diff(lpc_kernel.lpc_fir(*lin, F=Fc, taps=9), want_l, w.ns.repeat(ch))
         if e != 0 or lp != 0:
             raise AssertionError(
                 f"{c.bit_depth}-bit C={ch} B={words.shape[0]}: element {e}, LPC {lp} "
@@ -403,9 +408,9 @@ def main() -> int:
     el_bound, lpc_bound = walk_bounds(w2, sizes2, lpc_in2)
 
     # ---- phase 6: every kernel against its plain version on hi-res batches (B=256) ----
-    def hires_config(depth, channels, rate=96000):
+    def hires_config(depth, channels, rate=96000, frame=F):
         return port.PacketConfig(
-            frame_length=F, bit_depth=depth, num_channels=channels, pb=40, mb=10, kb=14,
+            frame_length=frame, bit_depth=depth, num_channels=channels, pb=40, mb=10, kb=14,
             max_run=255, max_frame_bytes=0, avg_bit_rate=0, sample_rate=rate,
         )
 
@@ -416,14 +421,17 @@ def main() -> int:
         w = walk(c, words, sizes)
         return words, sizes, w, shift_reads(w.shift_base, w.bs, w.role, w.ns)
 
+    # Packets of F6 samples: a plain element walk costs its op launches per
+    # row whatever B is, and phases 3, 5 and 8 hold the kernels at F=4096.
+    F6 = 1024
     r_err, r_lines = 0, []
     for i, (depth, ch, bsf, quiet) in enumerate([
         (24, 2, 1, 0), (32, 2, 2, 0), (24, 1, 1, 0),
         (32, 1, 1, 8),  # 24-bit music: at full scale every packet is an escape
     ]):
-        hc = hires_config(depth, ch)
-        music = music_pcm(214 * F + F // 3, ch, SEED + 20 + i, depth=depth) >> quiet
-        noise = music_pcm(40 * F, ch, SEED + 24 + i, tonality=0.0, depth=depth)
+        hc = hires_config(depth, ch, frame=F6)
+        music = music_pcm(214 * F6 + F6 // 3, ch, SEED + 20 + i, depth=depth) >> quiet
+        noise = music_pcm(40 * F6, ch, SEED + 24 + i, tonality=0.0, depth=depth)
         pk = native.encode_packets(hc, music, bytes_shifted=bsf)  # ends in a partial packet
         pk += native.encode_packets(hc, noise, bytes_shifted=bsf)  # escapes
         pk.append(pk[3][: len(pk[3]) // 3])  # truncated
@@ -433,8 +441,8 @@ def main() -> int:
         if shifted < 200 or not (w.esc == 1).any():
             raise AssertionError(f"{depth}-bit C={ch}: {shifted} shifted lanes, or no escapes")
         for signed in (False, True):
-            a = raw_read(words, *args, F=F, signed=signed)
-            b = raw_read_reference(words, *args, F=F, signed=signed)
+            a = raw_read(words, *args, F=F6, signed=signed)
+            b = raw_read_reference(words, *args, F=F6, signed=signed)
             r_err = max(r_err, amax((a - b).abs()))
         if r_err != 0:
             raise AssertionError(f"{depth}-bit C={ch}: raw reader differs from its plain version")
@@ -449,7 +457,7 @@ def main() -> int:
         )
     print(
         f"phase 6 element, lpc (9 taps) and raw reader (signed and unsigned) vs plain "
-        f"(B=256, F={F}, tolerance 0): max_abs_err element {e_err}, lpc {l_err}, raw "
+        f"(B=256, F={F6}, tolerance 0): max_abs_err element {e_err}, lpc {l_err}, raw "
         f"reader {r_err}; {'; '.join(r_lines)}"
     )
 
@@ -567,63 +575,97 @@ def main() -> int:
         ns[231], ns[232] = 0, F // 3 + 1
         return torch.from_numpy(x.astype(np.int32)).to(dev), torch.from_numpy(ns).to(dev)
 
-    def lpc_forward_check(args, taps):
+    def lpc_forward_check(args, kw):
         """The forward LPC kernel against its plain version on one set of
-        inputs, every row: (residuals (F, L), plain ms)."""
-        got = lpc_kernel.lpc_fir(*args, F=F, taps=taps, forward=True)
-        want, ms = timed(lambda: lpc_kernel.lpc_fir_reference(*args, F=F, taps=taps, forward=True))
-        if not torch.equal(got, want):
+        inputs, every row: (residuals (F, L), plain ms, max abs difference)."""
+        got = lpc_kernel.lpc_fir(*args, **kw)
+        want, ms = timed(lambda: lpc_kernel.lpc_fir_reference(*args, **kw))
+        err = amax((got.to(i64) - want.to(i64)).abs())
+        if err != 0:
             raise AssertionError(
-                f"forward LPC (order {int(args[2][0])}, taps {taps}, L={args[2].numel()}) differs "
-                f"from its plain version: max {amax((got - want).abs())}"
+                f"forward LPC (orders {sorted(set(args[2].tolist()))}, taps {kw['taps']}, "
+                f"L={args[2].numel()}) differs from its plain version: max {err}"
             )
-        return got[:F], ms
+        return got[:F], ms, err
 
-    def encode_check(args, kb, W_out):
-        """The encode kernel against its plain version on one set of inputs:
-        words (zero tails included), bits and ovf: (bits, ovf, plain ms)."""
-        kw = dict(kb=kb, F=F, W_out=W_out)
+    def encode_check(args, kw):
+        """The encode kernel against its plain version on one set of inputs,
+        words (zero tails included), bits and ovf: (bits, ovf, plain ms, max
+        abs difference over the three outputs)."""
         got = encode_kernel.dense_encode(*args, **kw)
         want, ms = timed(lambda: encode_kernel.dense_encode_reference(*args, **kw))
-        for name, a, b in zip(("words", "bits", "ovf"), got, want):
-            if not torch.equal(a, b):
+        errs = [amax((a.to(i64) - b.to(i64)).abs()) for a, b in zip(got, want)]
+        for name, a, b, err in zip(("words", "bits", "ovf"), got, want, errs):
+            if err != 0:
                 raise AssertionError(
-                    f"encode kernel (kb {kb}, B={a.shape[0]}): {name} differs from the plain "
-                    f"version at {torch.nonzero(a != b)[:3].tolist()}"
+                    f"encode kernel (kb {kw['kb']}, B={a.shape[0]}): {name} differs from the "
+                    f"plain version by up to {err} at {torch.nonzero(a != b)[:3].tolist()}"
                 )
-        return got[1], got[2], ms
+        return got[1], got[2], ms, max(errs)
+
+    def side_by_side(a, b, lane_axes):
+        """Two sets of a kernel's inputs as one, joined along each tensor's
+        lane axis (every lane carries its own order, mode and widths)."""
+        return tuple(torch.cat([p, q], dim=ax) for p, q, ax in zip(a, b, lane_axes))
 
     def body_words(kb, cb):
         return (F * (9 + max(kb, cb) + 26) + 256) // 32 + 4
 
+    # Two orders share each forward-LPC call and two widths the kb 14 encode
+    # call, so each plain version (seconds per run) runs once per tap count
+    # and per kb.
     shared0 = torch.zeros((256, 32), dtype=i32, device=dev)
+    fwd_err, enc_err = 0, 0
     f_lines, res_by_cb = [], {}
-    for order, mode, cb in ((4, 0, 17), (6, 1, 17), (12, 0, 17), (30, 0, 32)):
-        x, ns11 = enc_lanes(cb, SEED + 50 + order)
-        coefs = encode_device.fit_coefs(x, ns11.to(i64), order, 9, shared0)
-        args, taps = encode_device._lpc_forward_args(x, order, 9, cb, ns11, coefs, F, mode)
-        res, ms = lpc_forward_check(args, taps)
-        res_by_cb.setdefault(cb, (res.T.contiguous(), ns11))
-        f_lines.append(f"order {order} mode {mode} cb {cb} taps {taps} (plain {ms:.0f} ms)")
-    e_lines = []
-    for kb, cb in ((14, 17), (14, 32), (28, 32)):
-        res, ns11 = res_by_cb[cb]
-        pb_local = torch.full((256,), cfg.pb, dtype=i32, device=dev)
-        args = encode_device._entropy_args(res, ns11, pb_local, cb, cfg.mb)
-        zero_runs = int((args[1][:, 220:231] > F // 16).sum())
-        bits11, ovf11, ms = encode_check(args, kb, body_words(kb, cb))
-        if int(bits11[231]) != 0 or int(ovf11.sum()) != 0 or zero_runs == 0:
-            raise AssertionError(f"phase 11 kb {kb} cb {cb}: empty lane, ovf or zero runs wrong")
-        # At kb 14 a 32-bit noise value always escapes: a 9-one prefix and 32 raw bits.
-        if (kb, cb) == (14, 32) and int(bits11[200:220].min()) < F * 41 * 9 // 10:
-            raise AssertionError("phase 11 kb 14 cb 32: the noise lanes did not escape")
-        e_lines.append(
-            f"kb {kb} cb {cb}: {int(bits11.sum()) // 8} bytes, noise lanes "
-            f"{int(bits11[200:220].min())}+ bits (plain {ms:.0f} ms)"
+    for taps, regimes in ((9, ((4, 0, 17), (6, 1, 17))), (32, ((12, 0, 17), (30, 0, 32)))):
+        sets = []
+        for order, mode, cb in regimes:
+            x, ns11 = enc_lanes(cb, SEED + 50 + order)
+            coefs = encode_device.fit_coefs(x, ns11.to(i64), order, 9, shared0)
+            args, got_taps = encode_device._lpc_forward_args(x, order, 9, cb, ns11, coefs, F, mode)
+            if got_taps != taps:
+                raise AssertionError(f"order {order} runs at {got_taps} taps, not {taps}")
+            sets.append((args, cb, ns11))
+        args = side_by_side(sets[0][0], sets[1][0], (2, 0, 0, 0, 0, 0, 0, 0, 0))
+        res, ms, err = lpc_forward_check(args, dict(F=F, taps=taps, forward=True))
+        fwd_err = max(fwd_err, err)
+        for i, (_, cb, ns11) in enumerate(sets):
+            res_by_cb.setdefault(cb, (res[:, 256 * i : 256 * (i + 1)].T.contiguous(), ns11))
+        f_lines.append(
+            f"taps {taps}: " + " and ".join(f"order {o} mode {m} cb {c}" for o, m, c in regimes)
+            + f" (L=512, plain {ms:.0f} ms)"
         )
+    pb_local = torch.full((256,), cfg.pb, dtype=i32, device=dev)
+
+    def entropy_inputs(cb):
+        res, ns11 = res_by_cb[cb]
+        return encode_device._entropy_args(res, ns11, pb_local, cb, cfg.mb)
+
+    e_lines = []
+    for kb, cbs in ((14, (17, 32)), (28, (32,))):
+        args = entropy_inputs(cbs[0])
+        if len(cbs) == 2:
+            args = side_by_side(args, entropy_inputs(cbs[1]), (1, 1, 0, 0, 0, 0, 0))
+        bits11, ovf11, ms, err = encode_check(args, dict(kb=kb, F=F, W_out=body_words(kb, max(cbs))))
+        enc_err = max(enc_err, err)
+        for i, cb in enumerate(cbs):
+            lane0 = 256 * i
+            zero_runs = int((args[1][:, lane0 + 220 : lane0 + 231] > F // 16).sum())
+            noise_bits = int(bits11[lane0 + 200 : lane0 + 220].min())
+            if int(bits11[lane0 + 231]) != 0 or int(ovf11.sum()) != 0 or zero_runs == 0:
+                raise AssertionError(f"phase 11 kb {kb} cb {cb}: empty lane, ovf or zero runs wrong")
+            # At kb 14 a 32-bit noise value always escapes: a 9-one prefix and 32 raw bits.
+            if (kb, cb) == (14, 32) and noise_bits < F * 41 * 9 // 10:
+                raise AssertionError("phase 11 kb 14 cb 32: the noise lanes did not escape")
+            e_lines.append(
+                f"kb {kb} cb {cb}: {int(bits11[lane0 : lane0 + 256].sum()) // 8} bytes, noise "
+                f"lanes {noise_bits}+ bits"
+            )
+        e_lines[-1] += f" (B={256 * len(cbs)}, plain {ms:.0f} ms)"
     print(
-        f"phase 11 forward lpc and encode kernels vs plain (B=256, F={F}, tolerance 0): "
-        f"max_abs_err 0; forward lpc {'; '.join(f_lines)}; encode {'; '.join(e_lines)}"
+        f"phase 11 forward lpc and encode kernels vs plain (256 lanes a regime, F={F}, "
+        f"tolerance 0): max_abs_err forward lpc {fwd_err}, encode {enc_err}; forward lpc "
+        f"{'; '.join(f_lines)}; encode {'; '.join(e_lines)}"
     )
 
     # ---- phase 12: the encode path at full size ----
@@ -709,60 +751,72 @@ def main() -> int:
         f"byte-equal to the C++ host encoder's"
     )
 
-    # ---- phase 13: the encode-side kernels vs plain at phase 12's shapes, and times ----
-    planes = torch.from_numpy(
-        np.ascontiguousarray(pcm[: (n_pk - 1) * F].reshape(n_pk - 1, F, C).transpose(0, 2, 1))
-    ).to(dev, i32)
-    planes = torch.cat([planes, torch.zeros((1, C, F), dtype=i32, device=dev)])
-    planes[-1, :, : total - (n_pk - 1) * F] = torch.from_numpy(pcm[(n_pk - 1) * F :].T).to(dev)
-    ns13 = torch.full((n_pk,), F, dtype=i64, device=dev)
-    ns13[-1] = total - (n_pk - 1) * F
-    valid13 = torch.arange(F, device=dev)[None, :] < ns13[:, None]
-    mr13 = torch.full((n_pk,), fit_spec.mix_res, dtype=i64, device=dev)
-    (u13, _), _ = encode_device._mix_pair(
-        planes[:, 0], planes[:, 1], mr13, fit_spec.mix_bits, 17, valid13
-    )
-    coefs13 = encode_device.fit_coefs(
-        u13, ns13, 6, 9, torch.zeros((n_pk, 32), dtype=i32, device=dev)
-    )
-    f_args, f_taps = encode_device._lpc_forward_args(u13, 6, 9, 17, ns13, coefs13, F, 0)
-    res13, fwd_plain_ms = lpc_forward_check(f_args, f_taps)
-    t_fwd = cuda_times(lambda: lpc_kernel.lpc_fir(*f_args, F=F, taps=f_taps, forward=True))
-    pb13 = torch.full((n_pk,), cfg.pb, dtype=i32, device=dev)
-    e_args = encode_device._entropy_args(res13.T.contiguous(), ns13, pb13, 17, cfg.mb)
-    W13 = body_words(cfg.kb, 17)
-    bits13, ovf13, enc_plain_ms = encode_check(e_args, cfg.kb, W13)
-    if int(ovf13.sum()) != 0:
-        raise AssertionError(f"{int(ovf13.sum())} lanes overflowed their row")
-    t_enc = cuda_times(lambda: encode_kernel.dense_encode(*e_args, kb=cfg.kb, F=F, W_out=W13))
-    Fp = walk_kernel.f_pad(F)
-    fwd_bound = bound(
-        4 * (Fp * n_pk + n_pk * (7 + f_taps) + Fp * n_pk),
-        2 * 6 * float(ns13.sum()),  # MACs of the order-6 prediction
-    )
-    enc_bound = bound(
-        4 * (2 * F * n_pk + 5 * n_pk + n_pk * W13 + 2 * n_pk),  # rows in, zero-tailed rows out
-        16 * float(ns13.sum()),  # a Rice code: clz, divide, shifts, mean update
-    )
+    # ---- phase 13: the encode-side kernels vs plain on phase 12's inputs, and times ----
+    # One more call of phase 12's, collecting what it hands encode_walk and
+    # each kernel: every launch of the call is held to its plain version.
+    encode_device._calls = calls = []
+    try:
+        port.encode_packets_device(cfg, fit_spec, chunks16)
+    finally:
+        encode_device._calls = None
+    by = {
+        name: [(a, kw) for n, a, kw in calls if n == name]
+        for name in ("encode_walk", "lpc_forward", "encode")
+    }
+    n_calls = {name: len(v) for name, v in by.items()}
+    if n_calls != {"encode_walk": 1, "lpc_forward": e_launches["lpc_forward"],
+                   "encode": e_launches["encode"]}:
+        raise AssertionError(f"collected {n_calls} calls against launches {e_launches}")
+    t_fwd, fwd_plain, fwd_bounds = [], [], []
+    for f_args, f_kw in by["lpc_forward"]:
+        _, ms, err = lpc_forward_check(f_args, f_kw)
+        fwd_err = max(fwd_err, err)
+        fwd_plain.append(ms)
+        t_fwd += cuda_times(lambda: lpc_kernel.lpc_fir(*f_args, **f_kw))
+        rows, order13, ns_f, coefs13 = f_args[0], f_args[2], f_args[5], f_args[8]
+        fwd_bounds.append(bound(
+            4 * (2 * rows.numel() + 7 * order13.numel() + coefs13.numel()),  # rows in and out
+            2 * float((order13.double() * ns_f.double()).sum()),  # MACs of the prediction
+        ))
+    t_enc, enc_plain, enc_bounds, body_bytes = [], [], [], 0
+    for e_args, e_kw in by["encode"]:
+        bits13, ovf13, ms, err = encode_check(e_args, e_kw)
+        enc_err = max(enc_err, err)
+        if int(ovf13.sum()) != 0:
+            raise AssertionError(f"{int(ovf13.sum())} lanes overflowed their row")
+        enc_plain.append(ms)
+        body_bytes += int(bits13.sum()) // 8
+        t_enc += cuda_times(lambda: encode_kernel.dense_encode(*e_args, **e_kw))
+        lanes13 = e_args[5].numel()
+        enc_bounds.append(bound(
+            # rows in, zero-tailed rows out
+            4 * (e_args[0].numel() + e_args[1].numel() + 5 * lanes13
+                 + lanes13 * e_kw["W_out"] + 2 * lanes13),
+            16 * float(e_args[5].sum()),  # a Rice code: clz, divide, shifts, mean update
+        ))
+    fwd_plain_ms, enc_plain_ms = statistics.median(fwd_plain), statistics.median(enc_plain)
+    fwd_bound, enc_bound = max(fwd_bounds), max(enc_bounds)
+    f_kw, e_kw = by["lpc_forward"][0][1], by["encode"][0][1]
     print(
-        f"phase 13 {tag} encode-side kernels vs plain at L={n_pk} F={F} (channel 0 of phase "
-        f"12), tolerance 0: max_abs_err 0, ovf 0; forward lpc taps {f_taps} ms {summary(t_fwd)} "
-        f"| plain {fwd_plain_ms:.1f} | bound {fwd_bound[0]:.4f} by {fwd_bound[1]}; encode ms "
-        f"{summary(t_enc)} | plain {enc_plain_ms:.1f} | bound {enc_bound[0]:.4f} by "
-        f"{enc_bound[1]}; body {int(bits13.sum()) // 8} bytes in rows of {W13} words"
+        f"phase 13 {tag} encode-side kernels vs plain on every launch of one "
+        f"encode_packets_device call (B={n_pk}, F={F}; {n_calls['lpc_forward']} forward lpc, "
+        f"{n_calls['encode']} encode), tolerance 0: max_abs_err forward lpc {fwd_err}, encode "
+        f"{enc_err}, ovf 0; forward lpc taps {f_kw['taps']} ms {summary(t_fwd)} | plain "
+        f"{fwd_plain} | bound {fwd_bound[0]:.4f} by {fwd_bound[1]}; encode ms {summary(t_enc)} "
+        f"| plain {enc_plain} | bound {enc_bound[0]:.4f} by {enc_bound[1]}; bodies "
+        f"{body_bytes} bytes in rows of {e_kw['W_out']} words"
     )
-    # The device part of phase 12's call alone (planes already on the card
-    # to words and bit counts on the card); the rest of the call is host
-    # staging, the upload, the download and the per-packet cut.
-    t_walk = cuda_times(lambda: encode_device.encode_walk(
-        planes, ns13, mr13, torch.zeros((1, 32), dtype=i32, device=dev),
-        frame_length=F, num_channels=C, depth=cfg.bit_depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb,
-        elem_specs=((6, 9, (4,), 0, True),), mix_bits_s=fit_spec.mix_bits, bytes_shifted=0,
-        use_lfe_tag=True, force_escape=False, auto_escape=True,
-    ), runs=3)
+    # The device part of the call alone (planes already on the card to words
+    # and bit counts on the card); the rest of the call is host staging, the
+    # upload, the download and the per-packet cut.
+    w_args, w_kw = by["encode_walk"][0]
+    n_ovf = int(encode_device.encode_walk(*w_args, **w_kw)[2].sum())
+    if n_ovf:
+        raise AssertionError(f"encode_walk: {n_ovf} lanes overflowed")
+    t_walk = cuda_times(lambda: encode_device.encode_walk(*w_args, **w_kw), runs=3)
     print(
         f"phase 13 {tag} encode_walk alone at B={n_pk} (device part of encode_packets_device, "
-        f"whose warm median is {enc_med * 1e3:.1f} ms): ms {summary(t_walk)}"
+        f"whose warm median is {enc_med * 1e3:.1f} ms): ovf 0; ms {summary(t_walk)}"
     )
 
     kernels = [
@@ -800,7 +854,7 @@ def main() -> int:
             "name": "lpc_forward", "route": "cuda",
             "source": "saprobe_alac_tpu_torch/csrc/lpc_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/lpc_kernel.py:91 (forward=True)",
-            "launches": e_launches["lpc_forward"], "max_abs_err": 0,
+            "launches": e_launches["lpc_forward"], "max_abs_err": fwd_err,
             "ms": statistics.median(t_fwd), "plain_ms": fwd_plain_ms,
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None,
         },
@@ -808,7 +862,7 @@ def main() -> int:
             "name": "encode", "route": "cuda",
             "source": "saprobe_alac_tpu_torch/csrc/encode_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/encode_kernel.py:81",
-            "launches": e_launches["encode"], "max_abs_err": 0,
+            "launches": e_launches["encode"], "max_abs_err": enc_err,
             "ms": statistics.median(t_enc), "plain_ms": enc_plain_ms,
             "bound_ms": enc_bound[0], "bound_by": enc_bound[1], "library_ms": None,
         },

@@ -41,6 +41,17 @@ from .walk_kernel import f_pad
 _M32 = 0xFFFFFFFF
 I32, I64 = torch.int32, torch.int64
 
+#: Set to a list, it collects what the path hands its kernels and its walk:
+#: ("lpc_forward" | "encode" | "encode_walk", positional arguments, keyword
+#: arguments) per call, so a check can hold each kernel to its plain version
+#: on exactly the main path's inputs.  None (the default) collects nothing.
+_calls = None
+
+
+def _note(name, args, kw):
+    if _calls is not None:
+        _calls.append((name, args, kw))
+
 
 def _zero_run_table(res, ns):
     """zrun[i] = consecutive zeros at i (within [0, ns)); (L, F) int32."""
@@ -87,6 +98,7 @@ def _lpc_forward(data, order, den_shift, cb, ns, coefs, F, mode):
     Rows at t >= ns are don't-care."""
     if 1 <= order <= 30:
         args, taps = _lpc_forward_args(data, order, den_shift, cb, ns, coefs, F, mode)
+        _note("lpc_forward", args, dict(F=F, taps=taps, forward=True))
         return lpc_fir(*args, F=F, taps=taps, forward=True)[:F].T.contiguous()
     # Order 0: the residuals are the samples; order 31: first differences.
     res = data if order == 0 else _delta_post(data, cb)
@@ -110,9 +122,9 @@ def _entropy_args(res, ns, pb_local, cb, mb):
 def _entropy_body(res, ns, pb_local, cb, mb, kb, F, Wch):
     """Entropy-encode one channel for all lanes into a buffer of its own at
     bit 0: (buf (B, Wch) int32 big-endian bit order, bits (B,), ovf (B,))."""
-    buf, bits, ovf = dense_encode(
-        *_entropy_args(res, ns, pb_local, cb, mb), kb=kb, F=F, W_out=Wch
-    )
+    args = _entropy_args(res, ns, pb_local, cb, mb)
+    _note("encode", args, dict(kb=kb, F=F, W_out=Wch))
+    buf, bits, ovf = dense_encode(*args, kb=kb, F=F, W_out=Wch)
     return buf, bits.to(I64), ovf != 0
 
 
@@ -237,7 +249,9 @@ def encode_walk(
     mix_bits_s, bytes_shifted, use_lfe_tag, force_escape, auto_escape,
 ):
     """Packet assembly on the device: (words (B, W) int32 big-endian bit
-    order, bits (B,), ovf (B,)).
+    order, bits (B,), ovf (B,)).  ``ovf`` marks lanes whose channel body
+    outgrew its row; the rows hold the worst case of `_bounds`, so it is set
+    only if that sizing is wrong, and `encode_packets_device` raises on it.
 
     Each element is assembled in scratch buffers of its own, a compressed
     variant and a verbatim (escape) one; the escape is taken when the
@@ -407,7 +421,8 @@ def encode_packets_device(config: PacketConfig, spec: EncoderSpec, pcm_list,
     the host encoders do.  With ``fit`` on and no pinned coefficients each
     lane's channels are fitted on the device; the shared fallback for
     degenerate lanes is `initial_coefs` of the first packet.  kb == 0
-    streams go to the host encoder (`native.encode_with_spec`)."""
+    streams go to the host encoder (`native.encode_with_spec`); nothing
+    else does: a lane that overflows its row raises RuntimeError."""
     if not pcm_list:
         return []
     if config.kb == 0:
@@ -445,28 +460,30 @@ def encode_packets_device(config: PacketConfig, spec: EncoderSpec, pcm_list,
         coefs_arr[ei, : len(cvals)] = cvals
         chan += w
 
-    words, bits, ovf = encode_walk(
+    walk_args = (
         torch.from_numpy(planes).to(device),
         torch.from_numpy(ns).to(device),
         torch.full((Bb,), spec.mix_res, dtype=I32, device=device),
         torch.from_numpy(coefs_arr).to(device),
+    )
+    walk_kw = dict(
         frame_length=F, num_channels=C, depth=config.bit_depth, pb=config.pb, mb=config.mb,
         kb=config.kb, elem_specs=elem_specs, mix_bits_s=max(spec.mix_bits, 0),
         bytes_shifted=spec.bytes_shifted, use_lfe_tag=spec.use_lfe_tag,
         force_escape=bool(spec.escape), auto_escape=bool(spec.auto_escape),
     )
+    _note("encode_walk", walk_args, walk_kw)
+    words, bits, ovf = encode_walk(*walk_args, **walk_kw)
+    n_ovf = int(ovf.sum())
+    if n_ovf:
+        raise RuntimeError(f"encode kernel overflowed its row on {n_ovf} lanes")
     words = words.cpu().numpy()
     bits = bits.cpu().numpy()
-    ovf = ovf.cpu().numpy()
 
     be = words.astype(">i4").tobytes()
     row_bytes = words.shape[1] * 4
     out = []
     for i in range(B):
-        if ovf[i]:
-            # The lane's body outgrew its row: re-encode on the host.
-            out.extend(native.encode_with_spec(config, spec, [pcm_list[i]]))
-            continue
         nbytes = (int(bits[i]) + 7) // 8
         out.append(be[i * row_bytes : i * row_bytes + nbytes])
     return out

@@ -305,6 +305,51 @@ def test_device_is_the_card_by_default():
         port.encode_packets_device(cfg, port.EncoderSpec(), [music_pcm(64, 2, 16)])
 
 
+def test_an_overflowed_lane_raises(monkeypatch):
+    """A lane whose body outgrew its row is an error: no packet of the
+    batch is quietly re-encoded on the host."""
+    cfg = make_config(depth=16, channels=2, frame_length=64)
+    real = ted.dense_encode
+
+    def overflowing(*args, **kw):
+        words, bits, ovf = real(*args, **kw)
+        ovf[1] = 1
+        return words, bits, ovf
+
+    monkeypatch.setattr(ted, "dense_encode", overflowing)
+    monkeypatch.setattr(native, "encode_with_spec", lambda *a: pytest.fail("host encoder called"))
+    pcms = [music_pcm(64, 2, 16, seed=i) for i in range(3)]
+    with pytest.raises(RuntimeError, match="overflowed its row on 1 lanes"):
+        port.encode_packets_device(cfg, port.EncoderSpec(), pcms, device="cpu")
+
+
+@pytest.mark.parametrize("order,fwd_calls", [(4, 2), (0, 0)])
+def test_collected_calls_are_what_the_kernels_were_given(monkeypatch, order, fwd_calls):
+    """`_calls` holds each kernel's arguments as the path built them: run
+    again on their own they give the bodies the packets hold."""
+    from saprobe_alac_tpu_torch.ops import encode_kernel, lpc_kernel
+
+    cfg = make_config(depth=16, channels=2, frame_length=64)
+    spec = port.EncoderSpec(channel=port.ChannelSpec(order=order))
+    pcms = [music_pcm(64, 2, 16, seed=i) for i in range(3)]
+    monkeypatch.setattr(ted, "_calls", [])
+    pkts = port.encode_packets_device(cfg, spec, pcms, device="cpu")
+    names = [name for name, _, _ in ted._calls]
+    assert names == ["encode_walk"] + ["lpc_forward"] * fwd_calls + ["encode"] * 2
+    by = {n: [(a, kw) for m, a, kw in ted._calls if m == n] for n in set(names)}
+    words, bits, ovf = ted.encode_walk(*by["encode_walk"][0][0], **by["encode_walk"][0][1])
+    assert not ovf.any()
+    assert [len(p) for p in pkts] == [(int(b) + 7) // 8 for b in bits[:3]]
+    for (fa, fkw), (ea, ekw) in zip(by.get("lpc_forward", []), by["encode"]):
+        r = lpc_kernel.lpc_fir(*fa, **fkw)[: cfg.frame_length].to(torch.int64)
+        zigzag = torch.where(r >= 0, 2 * r, -2 * r - 1).to(torch.int32)
+        assert torch.equal(zigzag[:, :3], ea[0][:, :3])  # channel i's residuals feed body i
+    for ea, ekw in by["encode"]:
+        assert (encode_kernel.dense_encode(*ea, **ekw)[1][:3] > 0).all()
+    monkeypatch.setattr(ted, "_calls", None)
+    port.encode_packets_device(cfg, spec, pcms, device="cpu")  # collects nothing, and works
+
+
 @pytest.mark.parametrize("case", ["elements", "pb_candidates", "wide_coefs"])
 def test_native_raises_for_a_spec_it_cannot_express(case):
     cfg = make_config(depth=16, channels=6, frame_length=64)
