@@ -9,7 +9,7 @@ Phases, one line each (any failure raises and exits non-zero):
   2. build of the CUDA kernels (csrc/, nvcc) and of the C++ host core
      (native/, g++);
   3. the element and LPC kernels against their plain PyTorch versions on
-     the card, B=256 packets, F=4096, 16-bit stereo, tolerance 0 (integer
+     the card, B=256 packets of F=1024, 16-bit stereo, tolerance 0 (integer
      code): music, a partial final packet, near-white noise (escape
      elements), order-12 LPC (the 32-tap variant), order 31 with mode 1,
      and two corrupted packets;
@@ -44,7 +44,7 @@ Phases, one line each (any failure raises and exits non-zero):
  10. a truncated packet through BatchDecoder(cfg) raises the port's
      DecodeError subclass;
  11. the forward LPC kernel and the encode kernel against their plain
-     versions, 256 lanes of F=4096 a regime, tolerance 0, on inputs built
+     versions, 256 lanes of F=1024 a regime, tolerance 0, on inputs built
      as the encode path builds them: music at orders 4 and 6 (9 taps, int32
      coefficients; order 6 with mode 1; one call of 512 lanes), 12 and 30
      (32 taps, one call), a partial packet, ns == 0, near-white noise at
@@ -69,6 +69,36 @@ Phases, one line each (any failure raises and exits non-zero):
      runs) beside their bounds, each plain version's once per launch;
      encode_walk alone (the device part of the call) on the call's own
      arguments, by CUDA events.
+ 14. the packet kernel (every element of a packet in one launch) against
+     its plain version, a host slot loop over the plain element walk, B=256
+     packets of F=512 (a plain element walk costs its op launches per row,
+     and a 7.1 packet has five elements), tolerance 0, every output on every
+     lane: 8 channels 24-bit bytesShifted=1, 6 channels 16-bit, 3 channels
+     20-bit, and stereo with SCE+SCE packets and FIL/DSE elements before the
+     audio; each batch music ending in a partial packet, near-white noise, a
+     truncated and a bit-flipped packet;
+ 15. the multi-slot decode path at full width: B=2048 packets of F=4096
+     48 kHz 24-bit 7.1 surround (SCE CPE CPE CPE SCE) with bytesShifted=1
+     (174.8 s of audio) through BatchDecoder(cfg) on the default device,
+     bytes equal to the source, one packet and one LPC launch and the raw
+     reads, no host fallback; decode_packets timed as in phase 4; one call
+     under torch.profiler (the card's busy time, its top kernels) and one
+     with every stage synchronised and timed by the host clock;
+ 16. at phase 15's shapes: the packet kernel against a slot loop around the
+     element KERNEL on the card (kernel against kernel, every output), the
+     LPC kernel at L=16,384 lanes and the eight raw reads against their
+     plain versions, tolerance 0; their times by CUDA events beside their
+     bounds;
+ 17. the dense entropy kernel (the walk alone, no parse) on its probe path:
+     streams made by the encode kernel, no framing.  Against its plain
+     version at B=256, F=512, tolerance 0: two passes at kb 14 (suffix
+     widths 17 and 32, start cursors, truncated streams, empty, partial and
+     inactive lanes) and one pass at kb 6; at B=2048, F=4096, two passes,
+     on the residual rows of phase 5's batch encoded by the encode kernel:
+     rows equal to what went in, end cursor equal to the encoder's bit
+     count; and on phase 4's packets themselves, from the entropy start
+     cursors of the element kernel's parse: rows and end cursors equal to
+     the element kernel's; its time and bound.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its path, max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
@@ -78,6 +108,7 @@ before any import.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -226,7 +257,7 @@ def main() -> int:
     from saprobe_alac_tpu_torch import _build, native
     from saprobe_alac_tpu_torch.ops import encode_device, encode_kernel, lpc_kernel, walk_kernel
     from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
-    from saprobe_alac_tpu_torch.ops.epilogue import shift_reads
+    from saprobe_alac_tpu_torch.ops.epilogue import extract_shift, finish_packed, shift_reads
     from saprobe_alac_tpu_torch.ops.lpc import lpc_lanes
     from saprobe_alac_tpu_torch.ops.raw_reader import raw_read, raw_read_reference
     from saprobe_alac_tpu_torch.ops.walk import walk_batch
@@ -298,14 +329,18 @@ def main() -> int:
         return e, lp, el_ms, lpc_ms, int((want[2] != 0).sum())
 
     # ---- phase 3: kernels against their plain versions (B=256) ----
+    # Packets of F3 samples: a plain element walk costs its op launches per
+    # row whatever B is, and phases 5 and 8 hold the kernels at F=4096.
+    F3 = 1024
+    cfg3 = dataclasses.replace(cfg, frame_length=F3)
     pk = []
     for i, (kw, ton, n) in enumerate([
-        ({}, 0.98, 60 * F + 1234),  # ends in a partial packet
-        ({}, 0.0, 60 * F),  # near-white noise: escapes
-        ({"order": 12}, 0.98, 60 * F),
-        ({"order": 31, "mode": 1}, 0.98, 76 * F),
+        ({}, 0.98, 60 * F3 + 321),  # ends in a partial packet
+        ({}, 0.0, 60 * F3),  # near-white noise: escapes
+        ({"order": 12}, 0.98, 60 * F3),
+        ({"order": 31, "mode": 1}, 0.98, 76 * F3),
     ]):
-        pk += native.encode_packets(cfg, music_pcm(n, C, SEED + i, ton), **kw)
+        pk += native.encode_packets(cfg3, music_pcm(n, C, SEED + i, ton), **kw)
     pk = pk[:254]
     rng = np.random.default_rng(SEED)
     bad0 = pk[3][: len(pk[3]) // 3]  # truncated
@@ -316,21 +351,21 @@ def main() -> int:
     assert len(pk) == 256
     words, sizes = stager._stage(pk)
     B = words.shape[0]
-    w = walk(cfg, words, sizes)
+    w = walk(cfg3, words, sizes)
     if not (w.order == 12).any() or not (w.order == 31).any() or not (w.esc == 1).any():
         raise AssertionError("phase 3 batch lacks order-12, order-31 or escape lanes")
-    e_err, l_err, el_plain_256, _, n_err = check_walk_lpc(cfg, words, sizes, w)
+    e_err, l_err, el_plain_256, _, n_err = check_walk_lpc(cfg3, words, sizes, w)
     if n_err < 2:
         raise AssertionError(f"expected the corrupted packets to flag an error, got {n_err}")
     lpc_in = lanes(w)
-    a = lpc_kernel.lpc_fir(*lpc_in, F=F, taps=32)
-    b, plain_ms_32 = timed(lambda: lpc_kernel.lpc_fir_reference(*lpc_in, F=F, taps=32))
+    a = lpc_kernel.lpc_fir(*lpc_in, F=F3, taps=32)
+    b, plain_ms_32 = timed(lambda: lpc_kernel.lpc_fir_reference(*lpc_in, F=F3, taps=32))
     l_err = max(l_err, lpc_diff(a, b, w.ns.repeat(C)))
     if l_err != 0:
         raise AssertionError(f"LPC kernel (32 taps) differs from its plain version: {l_err}")
-    t_l32 = cuda_times(lambda: lpc_kernel.lpc_fir(*lpc_in, F=F, taps=32))
+    t_l32 = cuda_times(lambda: lpc_kernel.lpc_fir(*lpc_in, F=F3, taps=32))
     print(
-        f"phase 3 kernels vs plain (B={B}, F={F}, stereo, tolerance 0): element "
+        f"phase 3 kernels vs plain (B={B}, F={F3}, stereo, tolerance 0): element "
         f"max_abs_err={e_err} ({n_err} error lanes equal; plain {el_plain_256:.1f} ms), "
         f"lpc taps 9/32 max_abs_err={l_err}"
     )
@@ -380,8 +415,8 @@ def main() -> int:
     print(
         f"phase 5 {tag} kernels vs plain at B={B2} (L={2 * B2}), tolerance 0: max_abs_err "
         f"element {e_err}, lpc {l_err}; element ms {summary(t_el)} | plain {el_plain_ms:.1f}; "
-        f"lpc taps 9 ms {summary(t_lpc)} | plain {lpc_plain_ms:.1f}; lpc taps 32 at L={2 * B} "
-        f"ms {summary(t_l32)} | plain {plain_ms_32:.1f}"
+        f"lpc taps 9 ms {summary(t_lpc)} | plain {lpc_plain_ms:.1f}; lpc taps 32 at "
+        f"L={2 * B}, F={F3} ms {summary(t_l32)} | plain {plain_ms_32:.1f}"
     )
 
     def walk_bounds(w, sizes, lpc_in):
@@ -561,18 +596,21 @@ def main() -> int:
 
     # ---- phase 11: the encode-side kernels against their plain versions (B=256) ----
     i64 = torch.int64
+    # Rows of F11 samples: phase 13 holds both kernels at F=4096.
+    F11 = 1024
 
     def enc_lanes(cb, seed):
-        """(x (256, F) int32 on the card, ns (256,)): music, 20 lanes of
+        """(x (256, F11) int32 on the card, ns (256,)): music, 20 lanes of
         full-scale noise at ``cb`` bits, 10 sparse lanes (long zero runs),
         an all-zero lane, an empty and a partial packet."""
         g = np.random.default_rng(seed)
-        x = music_pcm(256 * F, 1, seed, depth=min(cb - 1, 24))[:, 0].reshape(256, F)
-        x[200:220] = g.integers(-(1 << (cb - 1)), 1 << (cb - 1), size=(20, F))
-        x[220:230] = np.where(g.random((10, F)) < 0.002, g.integers(-40, 40, size=(10, F)), 0)
+        x = music_pcm(256 * F11, 1, seed, depth=min(cb - 1, 24))[:, 0].reshape(256, F11)
+        x[200:220] = g.integers(-(1 << (cb - 1)), 1 << (cb - 1), size=(20, F11))
+        sparse = g.random((10, F11)) < 0.002
+        x[220:230] = np.where(sparse, g.integers(-40, 40, size=(10, F11)), 0)
         x[230] = 0
-        ns = np.full(256, F, np.int32)
-        ns[231], ns[232] = 0, F // 3 + 1
+        ns = np.full(256, F11, np.int32)
+        ns[231], ns[232] = 0, F11 // 3 + 1
         return torch.from_numpy(x.astype(np.int32)).to(dev), torch.from_numpy(ns).to(dev)
 
     def lpc_forward_check(args, kw):
@@ -586,7 +624,7 @@ def main() -> int:
                 f"forward LPC (orders {sorted(set(args[2].tolist()))}, taps {kw['taps']}, "
                 f"L={args[2].numel()}) differs from its plain version: max {err}"
             )
-        return got[:F], ms, err
+        return got[: kw["F"]], ms, err
 
     def encode_check(args, kw):
         """The encode kernel against its plain version on one set of inputs,
@@ -609,7 +647,7 @@ def main() -> int:
         return tuple(torch.cat([p, q], dim=ax) for p, q, ax in zip(a, b, lane_axes))
 
     def body_words(kb, cb):
-        return (F * (9 + max(kb, cb) + 26) + 256) // 32 + 4
+        return (F11 * (9 + max(kb, cb) + 26) + 256) // 32 + 4
 
     # Two orders share each forward-LPC call and two widths the kb 14 encode
     # call, so each plain version (seconds per run) runs once per tap count
@@ -622,12 +660,13 @@ def main() -> int:
         for order, mode, cb in regimes:
             x, ns11 = enc_lanes(cb, SEED + 50 + order)
             coefs = encode_device.fit_coefs(x, ns11.to(i64), order, 9, shared0)
-            args, got_taps = encode_device._lpc_forward_args(x, order, 9, cb, ns11, coefs, F, mode)
+            args, got_taps = encode_device._lpc_forward_args(
+                x, order, 9, cb, ns11, coefs, F11, mode)
             if got_taps != taps:
                 raise AssertionError(f"order {order} runs at {got_taps} taps, not {taps}")
             sets.append((args, cb, ns11))
         args = side_by_side(sets[0][0], sets[1][0], (2, 0, 0, 0, 0, 0, 0, 0, 0))
-        res, ms, err = lpc_forward_check(args, dict(F=F, taps=taps, forward=True))
+        res, ms, err = lpc_forward_check(args, dict(F=F11, taps=taps, forward=True))
         fwd_err = max(fwd_err, err)
         for i, (_, cb, ns11) in enumerate(sets):
             res_by_cb.setdefault(cb, (res[:, 256 * i : 256 * (i + 1)].T.contiguous(), ns11))
@@ -646,16 +685,17 @@ def main() -> int:
         args = entropy_inputs(cbs[0])
         if len(cbs) == 2:
             args = side_by_side(args, entropy_inputs(cbs[1]), (1, 1, 0, 0, 0, 0, 0))
-        bits11, ovf11, ms, err = encode_check(args, dict(kb=kb, F=F, W_out=body_words(kb, max(cbs))))
+        bits11, ovf11, ms, err = encode_check(
+            args, dict(kb=kb, F=F11, W_out=body_words(kb, max(cbs))))
         enc_err = max(enc_err, err)
         for i, cb in enumerate(cbs):
             lane0 = 256 * i
-            zero_runs = int((args[1][:, lane0 + 220 : lane0 + 231] > F // 16).sum())
+            zero_runs = int((args[1][:, lane0 + 220 : lane0 + 231] > F11 // 16).sum())
             noise_bits = int(bits11[lane0 + 200 : lane0 + 220].min())
             if int(bits11[lane0 + 231]) != 0 or int(ovf11.sum()) != 0 or zero_runs == 0:
                 raise AssertionError(f"phase 11 kb {kb} cb {cb}: empty lane, ovf or zero runs wrong")
             # At kb 14 a 32-bit noise value always escapes: a 9-one prefix and 32 raw bits.
-            if (kb, cb) == (14, 32) and noise_bits < F * 41 * 9 // 10:
+            if (kb, cb) == (14, 32) and noise_bits < F11 * 41 * 9 // 10:
                 raise AssertionError("phase 11 kb 14 cb 32: the noise lanes did not escape")
             e_lines.append(
                 f"kb {kb} cb {cb}: {int(bits11[lane0 : lane0 + 256].sum()) // 8} bytes, noise "
@@ -663,7 +703,7 @@ def main() -> int:
             )
         e_lines[-1] += f" (B={256 * len(cbs)}, plain {ms:.0f} ms)"
     print(
-        f"phase 11 forward lpc and encode kernels vs plain (256 lanes a regime, F={F}, "
+        f"phase 11 forward lpc and encode kernels vs plain (256 lanes a regime, F={F11}, "
         f"tolerance 0): max_abs_err forward lpc {fwd_err}, encode {enc_err}; forward lpc "
         f"{'; '.join(f_lines)}; encode {'; '.join(e_lines)}"
     )
@@ -819,6 +859,415 @@ def main() -> int:
         f"whose warm median is {enc_med * 1e3:.1f} ms): ovf 0; ms {summary(t_walk)}"
     )
 
+
+    # ---- phase 14: the packet kernel against its plain version (B=256, F=512) ----
+    from saprobe_alac_tpu_torch.encoder.spec import CHANNEL_LAYOUT_OFFSETS
+
+    F14 = 512
+
+    def packet_args(c, words, sizes):
+        """The packet kernel's inputs as walk_batch builds them."""
+        offsets = torch.tensor(CHANNEL_LAYOUT_OFFSETS[c.num_channels - 1], dtype=i32, device=dev)
+        kw = dict(kb=c.kb, F=c.frame_length, C=c.num_channels, depth=c.bit_depth, pb_cfg=c.pb,
+                  mb_cfg=c.mb)
+        return (words, sizes, offsets), kw
+
+    def packet_diff(got, want):
+        """Max abs difference over every output of the packet walk, every
+        lane (error lanes too: both run the same walk)."""
+        return max(amax((a.to(i64) - b.to(i64)).abs()) for a, b in zip(got, want))
+
+    def with_prefix(prefix_bits: str, packet: bytes) -> bytes:
+        """``packet`` with elements written before it, re-aligned to bytes."""
+        n = len(prefix_bits) + 8 * len(packet)
+        pad = -n % 8
+        val = ((int(prefix_bits, 2) << (8 * len(packet))) | int.from_bytes(packet, "big")) << pad
+        return val.to_bytes((n + pad) // 8, "big")
+
+    def bits(value, width):
+        return format(value, f"0{width}b")
+
+    # FIL (3 bytes), FIL with the escape count (15 + 2 - 1 = 16 bytes), DSE
+    # of 2 bytes, DSE with the align flag, in front of the pair: 5 of the
+    # stereo budget of 6 elements.
+    skips = (
+        bits(6, 3) + bits(3, 4) + bits(0x112233, 24)
+        + bits(6, 3) + bits(15, 4) + bits(2, 8) + "01" * 64
+        + bits(4, 3) + bits(0, 4) + "0" + bits(2, 8) + bits(0xAABB, 16)
+    )
+    skips += bits(4, 3) + bits(1, 4) + "1" + bits(1, 8)
+    skips += "0" * (-len(skips) % 8) + bits(0xCC, 8)
+
+    def element_ends(c, packets):
+        """The bit length of each packet's first element, from the element
+        kernel's parse and walk on the card."""
+        words, sizes = TorchBatchDecoder(c, dev)._stage(packets)
+        args = element_args(words, sizes, c.num_channels, c.frame_length)
+        _, bp, err, meta = walk_kernel.dense_element(*args, **element_kw(c))
+        if int(err[: len(packets)].abs().sum()):
+            raise AssertionError("a fixture packet did not parse")
+        end = torch.where(meta[walk_kernel.M_ESC] == 1, meta[walk_kernel.M_ESC_END], bp)
+        return end[: len(packets)].tolist()
+
+    p_err, p_lines, p_plain = 0, [], []
+    for i, (depth, ch, bsf) in enumerate([(24, 8, 1), (16, 6, 0), (20, 3, 0), (16, 2, 0)]):
+        pc = hires_config(depth, ch, rate=48000, frame=F14)
+        music = music_pcm(232 * F14 + F14 // 3, ch, SEED + 60 + i, depth=depth)
+        noise = music_pcm(20 * F14, ch, SEED + 64 + i, tonality=0.0, depth=depth)
+        pk = native.encode_packets(pc, music, bytes_shifted=bsf)  # ends in a partial packet
+        pk += native.encode_packets(pc, noise, bytes_shifted=bsf)  # escapes
+        if ch == 2:
+            # SCE+SCE stereo: the first element of one mono packet, then
+            # another mono packet whole; and skip elements before a pair.
+            mc = hires_config(depth, 1, rate=48000, frame=F14)
+            mono = native.encode_packets(mc, music[: 32 * F14, :1])
+            ends = element_ends(mc, mono)
+            for a in range(0, 32, 2):
+                head = bits(int.from_bytes(mono[a], "big") >> (8 * len(mono[a]) - ends[a]), ends[a])
+                pk.append(with_prefix(head, mono[a + 1]))
+            pk += [with_prefix(skips, p) for p in pk[:16]]
+            pk += [with_prefix((bits(6, 3) + bits(0, 4)) * 8, pk[0])]  # past the slot budget
+        bad = bytearray(pk[4])
+        for j in range(1, 40, 3):
+            bad[j] ^= 1 << int(rng.integers(0, 8))
+        late = bytearray(pk[5])
+        for j in range(len(late) // 2, len(late) // 2 + 40, 3):
+            late[j] ^= 1 << int(rng.integers(0, 8))
+        pk += [pk[3][: len(pk[3]) // 3], bytes(bad), bytes(late)]
+        pk = pk[-256:] if ch == 2 else pk[:253] + pk[-3:]
+        assert len(pk) == 256
+        words, sizes = TorchBatchDecoder(pc, dev)._stage(pk)
+        p_args, p_kw = packet_args(pc, words, sizes)
+        got = walk_kernel.dense_packet(*p_args, **p_kw)
+        want, ms = timed(lambda: walk_kernel.dense_packet_reference(*p_args, **p_kw))
+        p_err = max(p_err, packet_diff(got, want))
+        p_plain.append(ms)
+        if p_err != 0:
+            names = ("rows", "err", "ns", "meta", "coefs")
+            where = [n for n, a, b in zip(names, got, want) if not torch.equal(a, b)]
+            raise AssertionError(f"{depth}-bit C={ch}: packet kernel differs from its plain "
+                                 f"version in {where}")
+        err14 = want[1]
+        n_ok, n_bad = int((err14 == 0).sum()), int((err14 != 0).sum())
+        filled = want[3][walk_kernel.PACKET_FIELDS.index("filled")]
+        esc = want[3][walk_kernel.PACKET_FIELDS.index("esc")]
+        if n_ok < 230 or n_bad < 2 or not (esc == 1).any() or int(filled[err14 == 0].min()) != 1:
+            raise AssertionError(f"{depth}-bit C={ch}: {n_ok} clean lanes, {n_bad} error lanes, "
+                                 "or no escapes, or a clean lane with an unfilled channel")
+        if ch == 2:
+            role = want[3][walk_kernel.PACKET_FIELDS.index("role")]
+            n_ss = int(((role == 0).all(1) & (err14 == 0)).sum())
+            n_slots = int((err14 == walk_kernel.ERR_SLOTS).sum())
+            if n_ss < 16 or n_slots < 1:
+                raise AssertionError(f"stereo batch: {n_ss} SCE+SCE lanes, {n_slots} ERR_SLOTS")
+        p_lines.append(f"{depth}-bit C={ch} bs={bsf}: {n_ok} clean and {n_bad} error lanes equal "
+                       f"(plain {ms / 1e3:.1f} s)")
+    print(
+        f"phase 14 packet kernel vs plain (B=256, F={F14}, tolerance 0, every output on every "
+        f"lane): max_abs_err {p_err}; {'; '.join(p_lines)}; the stereo batch holds 16 SCE+SCE "
+        f"packets, 16 with FIL/DSE elements before the pair and one past the slot budget"
+    )
+
+    # ---- phase 15: the multi-slot decode path at full width (7.1 surround) ----
+    scfg = hires_config(24, 8, rate=48000)
+    spcm = music_pcm(total, 8, SEED + 70, depth=24)
+    t0 = time.perf_counter()
+    spkts = native.encode_packets(scfg, spcm, bytes_shifted=1)
+    enc_s = time.perf_counter() - t0
+    assert len(spkts) == n_pk
+    sdec = port.BatchDecoder(scfg)  # the default device: the card
+    port.reset_launch_counts()
+    sout = sdec.decode_packets(spkts)
+    s_launches = port.launch_counts()
+    check_decode(sout, spcm, 24)
+    if (s_launches["packet"], s_launches["lpc"], s_launches["raw_read"]) != (1, 1, 8):
+        raise AssertionError(f"7.1 path: launches {s_launches}, want 1 packet, 1 lpc, 8 raw reads")
+    if sdec.impl.last_fallbacks:
+        raise AssertionError(f"{sdec.impl.last_fallbacks} clean 7.1 packets fell back")
+    s_audio_s = total / scfg.sample_rate
+    print(
+        f"phase 15 decode_packets B={n_pk} F={F} 48 kHz 24-bit 7.1 (SCE CPE CPE CPE SCE) "
+        f"bytesShifted=1 ({s_audio_s:.1f} s of audio, {sum(map(len, spkts))} packet bytes, "
+        f"{sum(map(len, sout))} PCM bytes): bytes == source PCM; launches {s_launches}; host "
+        f"fallbacks {sdec.impl.last_fallbacks}; encode {enc_s:.2f} s"
+    )
+    del sout
+    s_host = host_times(lambda: sdec.decode_packets(spkts))
+    s_med = statistics.median(s_host)
+    print(
+        f"phase 15 {tag} decode_packets 7.1 B={n_pk}: s {summary(s_host)}; x realtime median "
+        f"{s_audio_s / s_med:.1f} (min {s_audio_s / max(s_host):.1f}, max "
+        f"{s_audio_s / min(s_host):.1f})"
+    )
+    # One profiled call.  The marked call is the second inside the profiler:
+    # a profiler's first records can be lost, and a busy time that misses
+    # the walk would pass for a measurement.  Device events are taken from
+    # the marked call's own window.
+    from torch.profiler import record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sdec.decode_packets(spkts)
+        torch.cuda.synchronize()
+        with record_function("smoke_marked_call"):
+            t0 = time.perf_counter()
+            sdec.decode_packets(spkts)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+    events = prof.events()
+    mark = next(e for e in events if e.name == "smoke_marked_call"
+                and e.device_type != DeviceType.CUDA)
+    by_name = {}
+    for e in events:
+        inside = mark.time_range.start <= e.time_range.start <= mark.time_range.end
+        if e.device_type == DeviceType.CUDA and inside and e.name != "smoke_marked_call":
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    dev_us = sorted(((us, n, key) for key, (us, n) in by_name.items()), reverse=True)
+    busy_ms = sum(us for us, _, _ in dev_us) / 1e3
+    top = "; ".join(f"{key[:40]} {us / 1e3:.2f} ms x{n}" for us, n, key in dev_us[:7])
+    seen = any("packet_kernel" in key for _, _, key in dev_us)
+    print(
+        f"phase 15 {tag} one profiled 7.1 decode_packets call ({prof_s * 1e3:.0f} ms under the "
+        f"profiler): device busy "
+        + (f"{busy_ms:.1f} ms ({100 * busy_ms / (prof_s * 1e3):.1f}% of the call) in "
+           f"{sum(n for _, n, _ in dev_us)} kernels and copies; top: {top}"
+           if seen else "not measured (the profiler's records of the call lack the packet kernel)")
+    )
+    del events
+    del prof
+
+    # One call stage by stage, each synchronised and timed by the host clock:
+    # where the host holds the card back.
+    def stage_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    impl = sdec.impl
+    (swords, ssizes), ms_stage = stage_ms(lambda: impl._stage(spkts))
+    sw, ms_walk = stage_ms(lambda: walk_batch(
+        swords, ssizes, F=F, C=8, depth=24, pb=scfg.pb, mb=scfg.mb, kb=scfg.kb, fused=False))
+    s_lpc_in = lanes(sw, 8)
+    smix, ms_lpc = stage_ms(lambda: lpc_kernel.lpc_fir(*s_lpc_in, F=F, taps=9)[:F])
+    sshift, ms_shift = stage_ms(lambda: extract_shift(
+        swords, sw.shift_base, sw.bs, sw.role, sw.ns, F=F, C=8))
+    spacked, ms_finish = stage_ms(lambda: finish_packed(
+        smix, sshift, sw.bs, sw.mixbits, sw.mixres, sw.role, sw.out_chan, sw.filled, C=8,
+        depth=24))
+    shost, ms_down = stage_ms(lambda: impl._download(spacked))
+    ns_host = sw.ns.cpu().numpy()
+    _, ms_trim = stage_ms(lambda: [impl._to_bytes(shost[k], int(ns_host[k])) for k in range(n_pk)])
+    print(
+        f"phase 15 {tag} one 7.1 call stage by stage (host clock, synchronised, ms): pack and "
+        f"upload {ms_stage:.1f}; walk (packet kernel) {ms_walk:.1f}; lpc lanes and kernel "
+        f"{ms_lpc:.1f}; shift reads {ms_shift:.1f}; unmix, re-insert, remap and 3-byte packing "
+        f"{ms_finish:.1f}; download of {spacked.numel() * 4} bytes {ms_down:.1f}; trim to "
+        f"{n_pk} bytes objects {ms_trim:.1f}"
+    )
+    del smix, sshift, spacked, shost
+
+    # ---- phase 16: the 7.1 path's kernels at its shapes ----
+    p_args, p_kw = packet_args(scfg, swords, ssizes)
+    got = walk_kernel.dense_packet(*p_args, **p_kw)
+    loop, ms_loop = timed(lambda: walk_kernel.dense_packet_reference(
+        *p_args, **p_kw, element=walk_kernel.dense_element))
+    pk_err = packet_diff(got, loop)
+    if pk_err != 0:
+        raise AssertionError(f"packet kernel differs from the slot loop around the element "
+                             f"kernel at B={n_pk}: {pk_err}")
+    del got, loop
+    t_pk = cuda_times(lambda: walk_kernel.dense_packet(*p_args, **p_kw))
+    pk_bound = bound(
+        float(ssizes.double().sum()) / 8 + 4 * n_pk * (1 + 2 + 8 * (14 + 32))
+        + 4 * 8 * walk_kernel.f_pad(F) * n_pk,
+        8 * 8 * float(sw.ns.double().sum()),  # a Rice decode per sample and channel
+    )
+    want_l, s_lpc_plain = timed(lambda: lpc_kernel.lpc_fir_reference(*s_lpc_in, F=F, taps=9))
+    s_l_err = lpc_diff(lpc_kernel.lpc_fir(*s_lpc_in, F=F, taps=9), want_l, sw.ns.repeat(8))
+    del want_l
+    if s_l_err != 0:
+        raise AssertionError(f"LPC kernel differs from its plain version at L={8 * n_pk}")
+    l_err = max(l_err, s_l_err)
+    t_slpc = cuda_times(lambda: lpc_kernel.lpc_fir(*s_lpc_in, F=F, taps=9))
+    order16, fir16 = s_lpc_in[2], s_lpc_in[1]
+    L16 = order16.numel()
+    s_lpc_bound = bound(
+        4 * (s_lpc_in[0].numel() + L16 * (7 + 9) + walk_kernel.f_pad(F) * L16),
+        2 * float((s_lpc_in[5].double() * order16.double() * (fir16 == 1)).sum()),
+    )
+    reads = [shift_reads(sw.shift_base, sw.bs, sw.role, sw.ns, c) for c in range(8)]
+    n_readers = sum(int(r[3].any()) for r in reads)
+    s_r_err, rr_bytes, rr_ops = 0, 0.0, 0.0
+    for r in reads:
+        want_r = raw_read_reference(swords, *r, F=F)
+        s_r_err = max(s_r_err, amax((raw_read(swords, *r, F=F) - want_r).abs()))
+        fields = torch.where(r[3] != 0, r[4], 0).double()
+        rr_bytes += float((fields * r[1].double()).sum()) / 8 + 4 * n_pk * 5 + 4 * want_r.numel()
+        rr_ops += 4 * float(fields.sum())
+    if s_r_err != 0:
+        raise AssertionError(f"raw reader differs from its plain version on the 7.1 batch")
+    r_err = max(r_err, s_r_err)
+    t_srr = cuda_times(lambda: [raw_read(swords, *r, F=F) for r in reads])
+    s_rr_bound = bound(rr_bytes, rr_ops)
+    print(
+        f"phase 16 {tag} the 7.1 path's kernels at B={n_pk} F={F}, tolerance 0: packet kernel "
+        f"vs a slot loop around the element kernel max_abs_err {pk_err} (the loop {ms_loop:.1f} "
+        f"ms); lpc (L={L16}) vs plain {s_l_err}; raw reads vs plain {s_r_err}; packet ms "
+        f"{summary(t_pk)} | bound {pk_bound[0]:.4f} by {pk_bound[1]}; lpc taps 9 ms "
+        f"{summary(t_slpc)} | plain {s_lpc_plain:.1f} | bound {s_lpc_bound[0]:.4f} by "
+        f"{s_lpc_bound[1]}; the 8 raw reads ({n_readers} with active lanes) ms {summary(t_srr)} "
+        f"| bound {s_rr_bound[0]:.4f} by {s_rr_bound[1]}"
+    )
+    del swords, sw, s_lpc_in, reads
+
+    # ---- phase 17: the dense entropy kernel on its probe path ----
+    def entropy_streams(res_list, ns_l, pb_list, cb_l, kb, start, Fe):
+        """Pure-entropy streams, no framing: each lane's residual rows
+        (B, Fe) encoded by the encode kernel, one body after the other from
+        bit ``start`` of the lane's row: (words, bits of each body)."""
+        Bs = ns_l.numel()
+        Wch = (Fe * (9 + max(kb, 32) + 26) + 256) // 32 + 4
+        words = torch.zeros((Bs, len(res_list) * Wch + 16), dtype=i32, device=dev)
+        at, counts = start.to(i64), []
+        for res, pb_l in zip(res_list, pb_list):
+            # The zigzagged rows and the zero-run table as the encode path
+            # builds them; the suffix width is each lane's own here.
+            n_t, zr_t, on, pb_i32, _, ns_i32, mb_l = encode_device._entropy_args(
+                res, ns_l, pb_l, 0, cfg.mb)
+            body, nbits, ovf = encode_kernel.dense_encode(
+                n_t, zr_t, on, pb_i32, cb_l, ns_i32, mb_l, kb=kb, F=Fe, W_out=Wch)
+            if int(ovf.sum()):
+                raise AssertionError("probe stream overflowed its row")
+            encode_device._blit_bits(words, at, body)
+            at = at + nbits
+            counts.append(nbits.to(i64))
+        return words, counts
+
+    def entropy_diff(got, want):
+        return max(amax((a.to(i64) - b.to(i64)).abs()) for a, b in zip(got, want))
+
+    B17, F17 = 256, 512
+    g17 = np.random.default_rng(SEED + 80)
+    lane17 = torch.arange(B17, device=dev)
+    cb17 = torch.where(lane17 % 2 == 0, 17, 32).to(i32)
+
+    def residuals17(seed):
+        """Small values, dense and sparse zero runs, all-zero lanes, escape
+        codewords and full-scale values at each lane's suffix width."""
+        g = np.random.default_rng(seed)
+        r = g.integers(-60, 60, (B17, F17))
+        r[32:64] = np.where(g.random((32, F17)) < 0.7, 0, r[32:64])
+        r[64:80] = np.where(g.random((16, F17)) < 0.003, r[64:80], 0)
+        r[80:84] = 0
+        r[96:128] = g.integers(-(1 << 15), 1 << 15, (32, F17))
+        r[128:160:2] = g.integers(-(1 << 16) + 1, 1 << 16, (16, F17))
+        r[129:160:2] = g.integers(-(1 << 31) + 1, 1 << 31, (16, F17))
+        return torch.from_numpy(r.astype(np.int32)).to(dev)
+
+    ns17 = torch.full((B17,), F17, dtype=i32, device=dev)
+    ns17[[5, 170]] = 0
+    ns17[[7, 171]] = torch.tensor([F17 // 3, 1], dtype=i32, device=dev)
+    one17 = torch.ones(B17, dtype=i32, device=dev)
+    act17, act2_17 = one17.clone(), one17.clone()
+    act17[[9, 200]] = 0
+    act2_17[[11, 200]] = 0
+    de_err, de_plain = 0, []
+    for passes, kb17, pbs in ((2, 14, (40, 24)), (1, 6, (40,))):
+        start = torch.from_numpy(g17.integers(0, 300, B17)).to(dev)
+        pb_l = [one17 * pb for pb in pbs]
+        res17 = [residuals17(SEED + 81 + p) for p in range(passes)]
+        words17, counts = entropy_streams(res17, ns17, pb_l, cb17, kb17, start, F17)
+        size17 = start + sum(counts)
+        size17 = torch.where(lane17 % 8 == 3, start + counts[0] // 2, size17)  # truncated
+        args17 = (words17, start.to(i32), act17, pb_l[0], cb17, ns17, size17.to(i32),
+                  one17 * cfg.mb, act2_17, pb_l[-1])
+        kw17 = dict(kb=kb17, F=F17, passes=passes)
+        got = walk_kernel.dense_entropy(*args17, **kw17)
+        want, ms = timed(lambda: walk_kernel.dense_entropy_reference(*args17, **kw17))
+        de_err = max(de_err, entropy_diff(got, want))
+        de_plain.append(ms)
+        rows17, bp17, err17 = got
+        n_over = int((err17 == walk_kernel.ERR_OVERRUN).sum())
+        clean = (err17 == 0) & (act17 == 1) & (lane17 % 8 != 3)
+        t17 = torch.arange(F17, device=dev)[None, :] < ns17[:, None]
+        back = all(
+            torch.equal((rows17[p, :F17].T * t17)[live], (res17[p] * t17)[live])
+            for p, live in enumerate((clean, clean & (act2_17 == 1))[:passes])
+        )
+        end17 = start + counts[0] + (counts[1] * (act2_17 == 1) if passes == 2 else 0)
+        cursors = torch.equal(bp17[clean].to(i64), end17[clean])
+        if de_err != 0 or n_over < 16 or not back or not cursors:
+            raise AssertionError(
+                f"dense entropy kernel, passes {passes} kb {kb17}: max_abs_err {de_err} against "
+                f"its plain version, {n_over} truncated lanes flagged, round trip {back}"
+            )
+    # At full size: the residual rows of phase 5's batch, encoded by the
+    # encode kernel, one body per channel.
+    t_full = torch.arange(F, device=dev)[None, :] < w2.ns[:, None]
+    res_uv = [(w2.res[p, :F].T * t_full).contiguous() for p in range(2)]
+    pb2048 = torch.full((B2,), cfg.pb, dtype=i32, device=dev)
+    zero2048 = torch.zeros(B2, dtype=i64, device=dev)
+    words_e, counts_e = entropy_streams(
+        res_uv, w2.ns, [pb2048, pb2048], torch.full_like(w2.ns, 17), cfg.kb, zero2048, F)
+    one2048 = torch.ones(B2, dtype=i32, device=dev)
+    args_e = (words_e, torch.zeros_like(w2.ns), one2048, pb2048, one2048 * 17, w2.ns,
+              (counts_e[0] + counts_e[1]).to(i32), one2048 * cfg.mb, one2048, pb2048)
+    port.reset_launch_counts()
+    rows_e, bp_e, err_e = port.dense_entropy(*args_e, kb=cfg.kb, F=F, passes=2)
+    de_launches = port.launch_counts()["dense_entropy"]
+    round_trip = max(
+        amax((rows_e[p, :F].T.to(i64) - res_uv[p].to(i64)).abs()) for p in range(2))
+    cursor = amax((bp_e.to(i64) - counts_e[0] - counts_e[1]).abs())
+    if round_trip or cursor or int(err_e.abs().sum()) or de_launches != 1:
+        raise AssertionError(
+            f"dense entropy at B={B2}: rows differ from what was encoded by {round_trip}, the "
+            f"cursor from the encoder's bit count by {cursor}, {int((err_e != 0).sum())} error "
+            f"lanes, {de_launches} launches"
+        )
+    de_err = max(de_err, round_trip, cursor)
+    t_de = cuda_times(lambda: walk_kernel.dense_entropy(*args_e, kb=cfg.kb, F=F, passes=2))
+    de_bound = bound(
+        float((counts_e[0] + counts_e[1]).sum()) / 8 + 4 * B2 * 9
+        + 4 * 2 * walk_kernel.f_pad(F) * B2 + 4 * 2 * B2,
+        8 * 2 * float(w2.ns.double().sum()),
+    )
+    # On the packets themselves: the element kernel's parse gives the start
+    # cursors (16-bit, no shift region: the entropy data starts where the
+    # predictor headers end) and the two pbFactor fields are read here.
+    rows_k, bp_k, err_k, meta_k = walk_kernel.dense_element(*e_args2, **element_kw(cfg))
+    from saprobe_alac_tpu_torch.ops.streambits import vread
+
+    partial16 = vread(words2, torch.full((B2,), 19, device=dev), 4) >> 3
+    hdr_u = 23 + 32 * partial16 + 16
+    pbf_u = vread(words2, hdr_u + 8, 3)
+    pbf_v = vread(words2, hdr_u + 16 + 16 * meta_k[walk_kernel.M_NUM_U].to(i64) + 8, 3)
+    comp16 = ((meta_k[walk_kernel.M_COMP] == 1) & (meta_k[walk_kernel.M_CPE] == 1)
+              & (err_k == 0)).to(i32)
+    args_p = (words2, meta_k[walk_kernel.M_SHIFT_BASE].contiguous(), comp16,
+              ((cfg.pb * pbf_u) >> 2).to(i32), one2048 * 17, meta_k[walk_kernel.M_NS].contiguous(),
+              sizes2, one2048 * cfg.mb, comp16, ((cfg.pb * pbf_v) >> 2).to(i32))
+    rows_p, bp_p, err_p = walk_kernel.dense_entropy(*args_p, kb=cfg.kb, F=F, passes=2)
+    on = comp16 == 1
+    vs_element = max(
+        amax((rows_p - rows_k).abs()[:, :, on]), amax((bp_p - bp_k).abs()[on]),
+        amax(err_p.abs()[on]))
+    if vs_element != 0 or int(on.sum()) < B2 - 8:
+        raise AssertionError(f"dense entropy on phase 4's packets differs from the element "
+                             f"kernel by {vs_element} ({int(on.sum())} compressed pair lanes)")
+    de_err = max(de_err, vs_element)
+    print(
+        f"phase 17 {tag} dense entropy kernel, tolerance 0: vs plain at B={B17} F={F17} (2 "
+        f"passes kb 14, 1 pass kb 6; suffix widths 17 and 32, start cursors, truncated, empty, "
+        f"partial and inactive lanes) max_abs_err {de_err}, plain ms {de_plain}; at B={B2} "
+        f"F={F}, 2 passes, streams from the encode kernel ({int(sum(counts_e).sum()) // 8} "
+        f"bytes): rows == the residuals encoded, cursor == the encoder's bits, {de_launches} "
+        f"launch; on phase 4's packets from the element kernel's start cursors: rows and "
+        f"cursors == the element kernel's on {int(on.sum())} lanes; ms {summary(t_de)} | bound "
+        f"{de_bound[0]:.4f} by {de_bound[1]}"
+    )
+
     kernels = [
         {
             "name": "element", "route": "cuda",
@@ -837,7 +1286,8 @@ def main() -> int:
             "launches": launches["lpc"], "max_abs_err": l_err,
             "ms": statistics.median(t_lpc), "plain_ms": lpc_plain_ms,
             "bound_ms": lpc_bound[0], "bound_by": lpc_bound[1], "library_ms": None,
-            "ms_taps32_L512": statistics.median(t_l32), "plain_ms_taps32_L512": plain_ms_32,
+            "ms_taps32_L512_F1024": statistics.median(t_l32),
+            "plain_ms_taps32_L512_F1024": plain_ms_32,
             "ms_hires": statistics.median(t_hlpc), "plain_ms_hires": h_lpc_plain_ms,
             "bound_ms_hires": h_lpc_bound[0],
         },
@@ -865,6 +1315,30 @@ def main() -> int:
             "launches": e_launches["encode"], "max_abs_err": enc_err,
             "ms": statistics.median(t_enc), "plain_ms": enc_plain_ms,
             "bound_ms": enc_bound[0], "bound_by": enc_bound[1], "library_ms": None,
+        },
+        {
+            "name": "packet", "route": "cuda",
+            "source": "saprobe_alac_tpu_torch/csrc/packet_kernel.cu",
+            "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:747 (the slot loop around it, "
+                        "saprobe_alac_tpu/ops/walk.py:1110)",
+            "launches": s_launches["packet"], "max_abs_err": max(p_err, pk_err),
+            "ms": statistics.median(t_pk), "plain_ms": p_plain[0],
+            "bound_ms": pk_bound[0], "bound_by": pk_bound[1], "library_ms": None,
+            "plain_is": "one run at B=256, F=512, 8 channels (it does not run at F=4096)",
+            "element_kernel_slot_loop_ms": ms_loop,
+            "lpc_ms_L16384": statistics.median(t_slpc), "lpc_plain_ms_L16384": s_lpc_plain,
+            "lpc_bound_ms_L16384": s_lpc_bound[0], "lpc_launches": s_launches["lpc"],
+            "raw_reads_ms": statistics.median(t_srr), "raw_reads_bound_ms": s_rr_bound[0],
+            "raw_read_launches": s_launches["raw_read"],
+        },
+        {
+            "name": "dense_entropy", "route": "cuda",
+            "source": "saprobe_alac_tpu_torch/csrc/dense_entropy_kernel.cu",
+            "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:629",
+            "launches": de_launches, "max_abs_err": de_err,
+            "ms": statistics.median(t_de), "plain_ms": de_plain[0],
+            "bound_ms": de_bound[0], "bound_by": de_bound[1], "library_ms": None,
+            "plain_is": "one run at B=256, F=512, two passes",
         },
     ]
     print(json.dumps({"kernels": kernels}))

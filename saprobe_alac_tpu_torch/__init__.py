@@ -1,10 +1,12 @@
 """saprobe_alac_tpu_torch — batched ALAC decode and encode in PyTorch and CUDA.
 
 A port of saprobe_alac_tpu's `BatchDecoder.decode_packets` for 16-, 20-, 24-
-and 32-bit mono and stereo streams (bytesShifted 0, 1 and 2), and of its
-device encoder `encode_packets_device` (every layout C = 1..8).  The Pallas
-kernels on those paths (element walk, LPC in both directions, shift-region
-raw reader, Golomb-Rice encode) are hand-written CUDA kernels for Hopper
+and 32-bit streams of C = 1..8 channels in every element layout
+(bytesShifted 0, 1 and 2), and of its device encoder
+`encode_packets_device` (every layout C = 1..8).  Every Pallas kernel of
+the JAX package (element walk, its multi-element packet walk, LPC in both
+directions, shift-region raw reader, Golomb-Rice encode, and the parse-free
+entropy walk `dense_entropy`) is a hand-written CUDA kernel for Hopper
 (csrc/, built with nvcc at first use); the glue around them is plain
 PyTorch.  `BatchDecoder(cfg)` and `encode_packets_device(cfg, spec, pcms)`
 run on the card; with ``"cpu"`` they run every kernel's plain PyTorch
@@ -31,11 +33,12 @@ from .errors import (
 )
 from .ops.batch import TorchBatchDecoder
 from .ops.encode_device import encode_packets_device
+from .ops.walk_kernel import dense_entropy
 
 __all__ = [
     "AlacError", "BatchDecoder", "BitstreamOverrun", "ChannelSpec", "ConfigError",
     "DecodeError", "EncoderSpec", "InvalidHeader", "InvalidShift", "PacketConfig",
     "SampleOverrun", "TorchBatchDecoder", "UnsupportedBitDepth", "UnsupportedElement",
-    "UnsupportedSpec", "encode_packets", "encode_packets_device", "launch_counts",
+    "UnsupportedSpec", "dense_entropy", "encode_packets", "encode_packets_device", "launch_counts",
     "reset_launch_counts",
 ]

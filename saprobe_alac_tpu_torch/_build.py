@@ -32,14 +32,21 @@ from types import SimpleNamespace
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
-#: One library per kernel source, each also including alac_int.cuh.
-_KERNELS = ("element_kernel", "lpc_kernel", "raw_reader_kernel", "encode_kernel")
+#: One library per kernel source, each also including the shared headers.
+_KERNELS = (
+    "element_kernel", "lpc_kernel", "raw_reader_kernel", "encode_kernel", "packet_kernel",
+    "dense_entropy_kernel",
+)
+_HEADERS = ("alac_int.cuh", "element_walk.cuh")
 
 _lock = threading.Lock()
 _lib = None
 
 #: Launches per kernel since the last reset (plain integers).
-_launches = {"element": 0, "lpc": 0, "raw_read": 0, "lpc_forward": 0, "encode": 0}
+_launches = {
+    "element": 0, "lpc": 0, "raw_read": 0, "lpc_forward": 0, "encode": 0, "packet": 0,
+    "dense_entropy": 0,
+}
 
 
 def count_launch(name: str) -> None:
@@ -101,7 +108,7 @@ def _kernel_argv(name: str):
 
 
 def _load_kernel(name: str) -> ctypes.CDLL:
-    sources = [_CSRC / "alac_int.cuh", _CSRC / f"{name}.cu"]
+    sources = [*(_CSRC / h for h in _HEADERS), _CSRC / f"{name}.cu"]
     return ctypes.CDLL(str(build_library(f"lib{name}", sources, _kernel_argv(name))))
 
 
@@ -121,7 +128,7 @@ def load():
             return _lib
         with ThreadPoolExecutor(len(_KERNELS)) as pool:
             libs = list(pool.map(_load_kernel, _KERNELS))
-        element, lpc, raw, encode = libs
+        element, lpc, raw, encode, packet, dense = libs
         P, I = ctypes.c_void_p, ctypes.c_int
         element.alac_element_launch.restype = I
         element.alac_element_launch.argtypes = [
@@ -153,8 +160,24 @@ def load():
             I, I, I, I,  # B, F, W, kb
             P,  # stream
         ]
+        packet.alac_packet_launch.restype = I
+        packet.alac_packet_launch.argtypes = [
+            P, I, P, P,  # words, W, size_bits, offsets
+            P, P, P, P, P,  # rows, err, ns, meta, coefs
+            I, I, I, I, I, I, I, I,  # B, C, F, F_pad, kb, depth, pb, mb
+            P,  # stream
+        ]
+        dense.alac_dense_entropy_launch.restype = I
+        dense.alac_dense_entropy_launch.argtypes = [
+            P, I, P, P, P, P, P, P, P, P, P,  # words, W, bitpos .. pb2 (nine lane vectors)
+            P, P, P,  # rows, bitpos_out, err
+            I, I, I, I,  # B, F_pad, passes, kb
+            P,  # stream
+        ]
         _lib = SimpleNamespace(
             libs=libs,
+            alac_packet_launch=packet.alac_packet_launch,
+            alac_dense_entropy_launch=dense.alac_dense_entropy_launch,
             alac_element_launch=element.alac_element_launch,
             alac_raw_read_launch=raw.alac_raw_read_launch,
             alac_encode_launch=encode.alac_encode_launch,

@@ -1,9 +1,9 @@
 """Packet-level batch decode API on one PyTorch device.
 
 Counterpart of saprobe_alac_tpu/decoder.py `BatchDecoder` (decoder.py:58-131).
-The batch runs on the card unless the caller asks for the CPU: on a CUDA
-device through the hand-written kernels, on ``"cpu"`` through their plain
-PyTorch versions.
+Streams of C = 1..8 channels at 16, 20, 24 and 32 bits.  The batch runs on
+the card unless the caller asks for the CPU: on a CUDA device through the
+hand-written kernels, on ``"cpu"`` through their plain PyTorch versions.
 """
 
 from __future__ import annotations

@@ -94,3 +94,26 @@ def encode_inputs_from_jax(res, zrun, pb_local, cb: int, ns, mb: int):
     ones = np.ones(B, np.int32)
     return (_t(np.ascontiguousarray(n.T)), _t(np.ascontiguousarray(zr1.T)), _t(ones),
             _t(pb_local), _t(ones * cb), _t(ns), _t(ones * mb))
+
+
+def dense_entropy_inputs_from_jax(words_t, bitpos, act, pb_local, max_size, ns, size_bits, mb,
+                                  act2=None, pb2=None):
+    """Arguments of JAX `dense_entropy_pallas` (words_t (W_pad, B) word-major,
+    lane arrays (B,)) -> the port's `dense_entropy` arguments: words (B, W)
+    row-major, then the lane vectors in the same order."""
+    words = _t(np.ascontiguousarray(np.asarray(words_t).T))
+    lane = [bitpos, act, pb_local, max_size, ns, size_bits, mb]
+    lane += [np.zeros_like(np.asarray(act)) if act2 is None else act2,
+             np.zeros_like(np.asarray(pb_local)) if pb2 is None else pb2]
+    return (words, *(_t(np.asarray(x)) for x in lane))
+
+
+def dense_entropy_rows_from_jax(rows, F: int, passes: int) -> torch.Tensor:
+    """Rows of JAX `dense_entropy_pallas`, (passes * F_pad', B) with its own
+    row padding, -> the port's (passes, F_pad, B)."""
+    rows = np.asarray(rows)
+    per = rows.reshape(passes, rows.shape[0] // passes, -1)
+    out = np.zeros((passes, f_pad(F), per.shape[2]), np.int32)
+    n = min(per.shape[1], out.shape[1])
+    out[:, :n] = per[:, :n]
+    return _t(out)

@@ -1,9 +1,13 @@
 """Batch decode orchestration: host packing -> device phases -> host bytes.
 
-Counterpart of saprobe_alac_tpu/ops/batch.py `JaxBatchDecoder` for the
-single-slot slice: 16-, 20-, 24- and 32-bit streams with C in {1, 2}.  A
-CUDA device (the default) launches the kernels, the CPU runs their plain
-versions, and nothing moves between the two by itself.  Packets that trip
+Counterpart of saprobe_alac_tpu/ops/batch.py `JaxBatchDecoder`: 16-, 20-,
+24- and 32-bit streams of C = 1..8 channels in every element layout.  Mono
+and stereo batches take the single-slot walk (one element kernel launch; a
+packet of another layout goes to the host), more channels the packet walk
+(one packet kernel launch for every element of every packet), as the JAX
+package picks between its two layouts.  A CUDA device (the default) launches
+the kernels, the CPU runs their plain versions, and nothing moves between
+the two by itself.  Packets that trip
 device-side validation (any nonzero ERR_* code) are decoded by the exact
 host path, the JAX package's error contract (batch.py:32-51, 380-390).
 Staging and the host path run on the repo's C++ host core (``..native``); a
@@ -19,7 +23,7 @@ import torch
 
 from .. import native
 from ..config import PacketConfig
-from ..errors import UnsupportedBitDepth, core_error
+from ..errors import ConfigError, UnsupportedBitDepth, core_error
 from .epilogue import extract_shift, finish_packed
 from .lpc import lpc_batch
 from .walk import ERR_NONE, walk_batch
@@ -54,10 +58,8 @@ class TorchBatchDecoder:
     def __init__(self, config: PacketConfig, device="cuda"):
         if config.bit_depth not in (16, 20, 24, 32):
             raise UnsupportedBitDepth(f"unsupported bit depth {config.bit_depth}")
-        if config.num_channels not in (1, 2):
-            raise NotImplementedError(
-                f"the port decodes mono and stereo only; got {config.num_channels} channels"
-            )
+        if not 1 <= config.num_channels <= 8:
+            raise ConfigError(f"unsupported channel count {config.num_channels}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
@@ -103,7 +105,12 @@ class TorchBatchDecoder:
         cfg = self.config
         words, sizes = self._stage(packets)
         F, C, depth = cfg.frame_length, cfg.num_channels, cfg.bit_depth
-        w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
+        # The JAX package's choice: the single-slot layout where one element
+        # fills a packet's channels, the packet walk above that.
+        fused = C <= 2
+        w = walk_batch(
+            words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb, fused=fused
+        )
         L = words.shape[0] * C
         mix = lpc_batch(
             w.res,
@@ -124,7 +131,9 @@ class TorchBatchDecoder:
         # reader runs for every such batch, as in the JAX package's dense path.
         shift_vals = None
         if depth in (24, 32):
-            shift_vals = extract_shift(words, w.shift_base, w.bs, w.role, w.ns, F=F, C=C)
+            shift_vals = extract_shift(
+                words, w.shift_base, w.bs, w.role, w.ns, F=F, C=C, single_slot=fused
+            )
         packed = finish_packed(
             mix, shift_vals, w.bs, w.mixbits, w.mixres, w.role, w.out_chan, w.filled,
             C=C, depth=depth,
@@ -135,8 +144,9 @@ class TorchBatchDecoder:
         """One packet's PCM from its finish_packed row (batch.py:348-364)."""
         depth, C = self.config.bit_depth, self.config.num_channels
         if depth == 16:
-            # Stereo rows hold one int32 word per frame (two LE int16 samples).
-            return packed_row[: ns * C // 2 if C == 2 else ns].tobytes()
+            # Even channel counts: int32 words of two LE int16 samples each;
+            # odd ones: int16 samples.
+            return packed_row[: ns * C // 2 if C % 2 == 0 else ns * C].tobytes()
         if depth in (20, 24):
             nb = ns * C * 3
             if (self.config.frame_length * C) % 4 == 0:

@@ -1,7 +1,7 @@
 """Phase 3: shift region, stereo unmix, channel remap and PCM packing.
 
 Counterpart of saprobe_alac_tpu/ops/epilogue.py `extract_shift_kernel`,
-`_finish_planes`, `pack_output` and `finish_packed` for C <= 2 at
+`_finish_planes`, `pack_output` and `finish_packed` for C = 1..8 at
 every depth (16, 20, 24, 32).  Plain PyTorch around the raw reader: the JAX
 package computes these in XLA outside any Pallas kernel.  Values are int64
 tensors holding int32 patterns; every sum and shift that can leave the int32
@@ -16,37 +16,47 @@ from .raw_reader import raw_read
 from .torchint import shl, sshr, ushr, wrap
 
 
-def shift_reads(shift_base, bs, role, ns):
+def shift_reads(shift_base, bs, role, ns, c=0):
     """The raw reader's lane inputs (base, step, width, act, n) for the shift
-    region of column 0, contiguous int32.
+    region of channel ``c``, contiguous int32.
 
     Mono channels read consecutive ``bs*8``-bit values; a CPE interleaves
     U/V (decoder.go:314-321, 492-502), so the U channel reads each
-    ``(u << w) | v`` pair as ONE 2w-bit field.  In the single-slot layout
-    column 1 is never a reader of its own: it holds role 2 (the V half of
-    column 0's pair) or bs 0 (walk.py ``cols``), so one read of column 0
-    serves both; the JAX package runs an all-inactive read for column 1."""
-    width = bs[:, 0] * 8
-    stride = torch.where(role[:, 0] == 0, width, 2 * width)
-    act = (bs[:, 0] > 0) & (role[:, 0] != 2)
-    lanes = (shift_base[:, 0], stride, stride, act, ns)
+    ``(u << w) | v`` pair as ONE 2w-bit field and the V channel (role 2)
+    reads nothing of its own: it takes the low half of its partner's read."""
+    width = bs[:, c] * 8
+    stride = torch.where(role[:, c] == 0, width, 2 * width)
+    act = (bs[:, c] > 0) & (role[:, c] != 2)
+    lanes = (shift_base[:, c], stride, stride, act, ns)
     return tuple(x.to(torch.int32).contiguous() for x in lanes)
 
 
-def extract_shift(words, shift_base, bs, role, ns, *, F, C):
+def extract_shift(words, shift_base, bs, role, ns, *, F, C, single_slot=False):
     """The shift region's low bits: (F, C, B) int32 F-major planes, equal to
-    the JAX package's `extract_shift_kernel` (see `shift_reads`)."""
+    the JAX package's `extract_shift_kernel` (epilogue.py:109-142): one read
+    per channel with `shift_reads`, the V halves split from channel c - 1's
+    fused read.  With ``single_slot`` (metadata of the single-slot walk)
+    channel 1 is never a reader of its own: it holds role 2 or bs 0
+    (walk.py ``cols``), so channel 0's read serves both and channel 1's is
+    not launched; the JAX package runs an all-inactive read there."""
     # Shift bits are OR-ed back in unsigned.
-    read = raw_read(words, *shift_reads(shift_base, bs, role, ns), F=F, signed=False)
-    read = read[:F].to(torch.int64)
-    # U lanes: high half of the fused read; mono lanes: the value itself.
-    planes = [torch.where(role[:, 0] == 1, ushr(read, bs[:, 0] * 8), read)]
-    if C > 1:
-        # V lanes: low half of column 0's fused read.
-        v_width = bs[:, 1] * 8
-        v_mask = wrap(shl(torch.ones_like(v_width), v_width).to(torch.int64) - 1)
-        planes.append(torch.where(role[:, 1] == 2, read & v_mask, 0))
-    planes = [torch.where(bs[:, c] > 0, p, 0) for c, p in enumerate(planes)]
+    readers = range(1 if single_slot else C)
+    reads = {
+        c: raw_read(words, *shift_reads(shift_base, bs, role, ns, c), F=F, signed=False)[:F]
+        .to(torch.int64)
+        for c in readers
+    }
+    planes = []
+    for c in range(C):
+        width = bs[:, c] * 8
+        read = reads.get(c)
+        # U lanes: high half of the fused read; mono lanes: the value itself.
+        val = 0 if read is None else torch.where(role[:, c] == 1, ushr(read, width), read)
+        if c > 0 and c - 1 in reads:
+            # V lanes: low half of the partner channel's fused read.
+            v_mask = wrap(shl(torch.ones_like(width), width).to(torch.int64) - 1)
+            val = torch.where(role[:, c] == 2, reads[c - 1] & v_mask, val)
+        planes.append(torch.where(bs[:, c] > 0, val, 0))
     return torch.stack(planes, dim=1).to(torch.int32)
 
 
@@ -108,9 +118,9 @@ def finish_packed(mix, shift_vals, bs, mixbits, mixres, role, out_chan, filled, 
     """The samples in SMPTE order, packed as PCM, with the interleave fused
     where the JAX package fuses it.
 
-    16-bit stereo: the (left, right) pair of frame f packs into one int32
-    word whose little-endian bytes are the two little-endian int16 samples
-    (matrix.go:30-63); (B, F) int32.  20/24-bit with F*C % 4 == 0: each four
+    16-bit with an even C: channels 2i and 2i + 1 of frame f pack into one
+    int32 word whose little-endian bytes are the two little-endian int16
+    samples (matrix.go:30-63); (B, F*C/2) int32.  20/24-bit with F*C % 4 == 0: each four
     3-byte samples of the sample stream s = f*C + c become three
     little-endian int32 words (matrix.go:91-131); (B, F*C*3/4) int32.  Every
     other case is `pack_output` of the samples.  ``shift_vals`` (F, C, B) is
@@ -125,9 +135,11 @@ def finish_packed(mix, shift_vals, bs, mixbits, mixres, role, out_chan, filled, 
         w2 = (ushr(s2, 16) & 0xFF) | shl(s3 & 0xFFFFFF, 8)
         w = torch.stack([w0, w1, w2], dim=-1)  # (F*C/4, B, 3)
         return w.transpose(0, 1).reshape(w.shape[1], (F * C * 3) // 4).to(torch.int32)
-    if depth == 16 and C == 2:
-        left, right = planes
-        packed = wrap((left & 0xFFFF) | ((right & 0xFFFF) << 16))
-        return packed.T.contiguous().to(torch.int32)
+    if depth == 16 and C % 2 == 0:
+        pairs = [
+            wrap((planes[i] & 0xFFFF) | ((planes[i + 1] & 0xFFFF) << 16)) for i in range(0, C, 2)
+        ]
+        packed = torch.stack(pairs, dim=-1).transpose(0, 1)  # (B, F, C/2)
+        return packed.reshape(packed.shape[0], F * C // 2).to(torch.int32)
     samples = torch.stack(planes, dim=-1).transpose(0, 1).to(torch.int32)  # (B, F, C)
     return pack_output(samples, depth)

@@ -1,15 +1,22 @@
-"""Phase 1: element walk for the single-slot layout (C <= 2).
+"""Phase 1: the element walk of a batch of packets.
 
-Counterpart of the fused single-slot branch of saprobe_alac_tpu/ops/walk.py
-(`slot_body_dense(first=True, single=True)` and walk.py:1077-1108).  One
+Counterpart of saprobe_alac_tpu/ops/walk.py `_walk_batch`, with its two
+layouts:
+
+``fused=True``, the single-slot layout (C <= 2), the counterpart of
+`slot_body_dense(first=True, single=True)` and walk.py:1077-1108.  One
 element-kernel call per batch parses each packet's one SCE or CPE and runs
 its entropy walk; the metadata is committed into (B, C) arrays.  Lanes whose
 layout needs more than one element slot (SCE+SCE stereo, DSE/FIL prefixes,
 trailing elements) get ERR_SLOTS and are decoded by the exact host fallback.
-
 A GPU thread indexes a lane directly, so the JAX package's one-hot `put`
 selects (walk.py:1030-1036) become plain indexed writes into column 0 (the
 U channel) and column 1 (the V channel of a CPE).
+
+``fused=False``, every element layout for C = 1..8, the counterpart of the
+slot loop (walk.py:1110-1189).  One packet-kernel call per batch walks every
+element of every packet (walk_kernel.py `dense_packet`): no slot loop, no
+commits and no merge on this side.
 """
 
 from __future__ import annotations
@@ -46,13 +53,18 @@ from .walk_kernel import (  # noqa: F401  (ERR_* re-exported)
     M_SCE,
     M_SHIFT_BASE,
     M_TAG,
+    PACKET_FIELDS,
     dense_element,
+    dense_packet,
 )
+from ..encoder.spec import CHANNEL_LAYOUT_OFFSETS
 
 
 class WalkResult(NamedTuple):
     """Per-batch phase-1 outputs (all int32), as saprobe_alac_tpu WalkResult
-    but with ``res`` the element kernel's rows (passes, F_pad, B)."""
+    but with ``res`` the walk kernel's rows: (passes, F_pad, B) from the
+    single-slot layout, (C, F_pad, B) from the packet walk; either way plane
+    c holds channel c's residuals (the JAX package hands on (F, C, B))."""
 
     res: torch.Tensor
     err: torch.Tensor  # (B,)
@@ -74,17 +86,31 @@ class WalkResult(NamedTuple):
     filled: torch.Tensor  # 1 if an element decoded into the channel
 
 
-def walk_batch(words, size_bits, *, F, C, depth, pb, mb, kb) -> WalkResult:
+def walk_batch(words, size_bits, *, F, C, depth, pb, mb, kb, fused=None) -> WalkResult:
     """Run phase 1 over a packed (B, W) int32 batch of big-endian words.
 
-    The batch's device (that of ``words``) picks the implementation: the
-    CUDA kernel on a CUDA device, the plain version on the CPU."""
-    if C not in (1, 2):
-        raise NotImplementedError(f"single-slot walk takes C <= 2, got {C}")
+    ``fused`` picks the layout (see the module text); left out, it is the
+    single-slot layout for C <= 2 and the packet walk above, the choice of
+    the JAX package's decode path.  The batch's device (that of ``words``)
+    picks the implementation: the CUDA kernels on a CUDA device, their plain
+    versions on the CPU."""
+    if not 1 <= C <= 8:
+        raise ValueError(f"the walk takes C = 1..8, got {C}")
+    if fused is None:
+        fused = C <= 2
+    if fused and C > 2:
+        raise ValueError(f"the single-slot layout takes C <= 2, got {C}")
     B = words.shape[0]
     dev = words.device
     i32 = torch.int32
     size_bits = size_bits.to(i32).contiguous()
+    if not fused:
+        offsets = torch.tensor(CHANNEL_LAYOUT_OFFSETS[C - 1], dtype=i32, device=dev)
+        rows, err, ns, meta, coefs = dense_packet(
+            words.contiguous(), size_bits, offsets,
+            kb=kb, F=F, C=C, depth=depth, pb_cfg=pb, mb_cfg=mb,
+        )
+        return WalkResult(res=rows, err=err, ns=ns, coefs=coefs, **dict(zip(PACKET_FIELDS, meta)))
 
     # Past-end check before the tag read (decoder.go:143-145).
     bitpos = torch.zeros(B, dtype=i32, device=dev)

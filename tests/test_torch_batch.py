@@ -160,8 +160,12 @@ def test_kb0_goes_to_host():
 
 @pytest.mark.parametrize("depth,channels", [(24, 6), (16, 6)])
 def test_unported_configs_raise(depth, channels):
-    with pytest.raises(NotImplementedError):
-        BatchDecoder(make_config(depth=depth, channels=channels, frame_length=F), "cpu")
+    """Every channel count of the format (1..8) is ported, so these
+    configurations construct; a count beyond it raises."""
+    dec = BatchDecoder(make_config(depth=depth, channels=channels, frame_length=F), "cpu")
+    assert dec.impl.config.num_channels == channels and not dec.impl._scalar_only
+    with pytest.raises(ConfigError):
+        BatchDecoder(make_config(depth=depth, channels=channels + 3, frame_length=F), "cpu")
 
 
 def test_unsupported_depth_raises_config_error():

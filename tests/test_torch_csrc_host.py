@@ -22,6 +22,7 @@ import torch
 from conftest import make_config, music_pcm
 
 from saprobe_alac_tpu_torch import native
+from saprobe_alac_tpu_torch.encoder.spec import CHANNEL_LAYOUT_OFFSETS
 from saprobe_alac_tpu_torch.interop import encode_inputs_from_jax
 from saprobe_alac_tpu_torch.ops import encode_kernel, lpc_kernel, walk_kernel
 from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
@@ -29,6 +30,9 @@ from saprobe_alac_tpu_torch.ops.encode_device import _zero_run_table
 from saprobe_alac_tpu_torch.ops.raw_reader import raw_read_reference
 from saprobe_alac_tpu_torch.ops.lpc import lpc_lanes
 from saprobe_alac_tpu_torch.ops.walk import walk_batch
+
+import test_torch_dense_entropy as entropy_cases
+import test_torch_walk_multislot as multislot
 
 F = 256
 CSRC = Path(walk_kernel.__file__).resolve().parents[1] / "csrc"
@@ -57,7 +61,7 @@ def host_lib(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("csrc_host")
     srcs = []
     for name in ("element_kernel.cu", "lpc_kernel.cu", "raw_reader_kernel.cu",
-                 "encode_kernel.cu"):
+                 "encode_kernel.cu", "packet_kernel.cu", "dense_entropy_kernel.cu"):
         src = tmp / (name[:-3] + ".cpp")
         src.write_text(_host_source((CSRC / name).read_text()))
         srcs.append(str(src))
@@ -128,6 +132,52 @@ def test_element_kernel_host_matches_plain(host_lib, depth, bsf, C):
     assert (meta[walk_kernel.M_BSF][ok] == bsf).any() and (meta[walk_kernel.M_ESC][ok] == 1).any()
     for name, g, w in zip(("rows", "bitpos", "err", "meta"), got, want):
         assert torch.equal(g, w), f"{name} differs at {torch.nonzero(g != w)[:5].tolist()}"
+
+
+@pytest.mark.parametrize("depth,C,bsf", multislot.CONFIGS)
+def test_packet_kernel_host_matches_plain(host_lib, depth, C, bsf):
+    """Every output of the packet kernel on every lane, error lanes too: the
+    multi-element layouts, skips, slot budget and corrupted packets of
+    tests/test_torch_walk_multislot.py, and the 16-bit batch of this file."""
+    cfg = make_config(depth=depth, channels=C, frame_length=F)
+    _, pkts = multislot.batch_packets(cfg, 7 * depth + C, bsf)
+    if depth == 16:
+        pkts = pkts + native.encode_packets(cfg, music_pcm(2 * F, C, 16, seed=C), order=12)
+    words, sizes = TorchBatchDecoder(cfg, "cpu")._stage(pkts)
+    B, W = words.shape
+    offsets = torch.tensor(CHANNEL_LAYOUT_OFFSETS[C - 1], dtype=torch.int32)
+    kw = dict(kb=cfg.kb, F=F, C=C, depth=depth, pb_cfg=cfg.pb, mb_cfg=cfg.mb)
+    want = walk_kernel.dense_packet_reference(words, sizes, offsets, **kw)
+    assert all(x.is_contiguous() for x in want)  # the kernel writes through raw pointers
+    got = [torch.full_like(x, SENTINEL) for x in want]
+    rc = host_lib.alac_packet_launch(
+        _ptr(words), W, _ptr(sizes), _ptr(offsets), *(_ptr(t) for t in got),
+        B, C, F, walk_kernel.f_pad(F), cfg.kb, depth, cfg.pb, cfg.mb, None,
+    )
+    assert rc == 0
+    err = want[1]
+    assert int((err == 0).sum()) >= 6 and int((err != 0).sum()) >= 3
+    for name, g, w in zip(("rows", "err", "ns", "meta", "coefs"), got, want):
+        assert torch.equal(g, w), f"{name} differs at {torch.nonzero(g != w)[:5].tolist()}"
+
+
+@pytest.mark.parametrize("name", sorted(entropy_cases.CASES))
+def test_dense_entropy_kernel_host_matches_plain(host_lib, name):
+    """Rows, end cursors and error codes in every regime of
+    tests/test_torch_dense_entropy.py."""
+    args, kw, _ = entropy_cases.build_case(name)
+    args = entropy_cases.torch_args(args)
+    want = walk_kernel.dense_entropy_reference(*args, **kw)
+    got = [torch.full_like(x, SENTINEL) for x in want]
+    B, W = args[0].shape
+    rc = host_lib.alac_dense_entropy_launch(
+        _ptr(args[0]), W, *(_ptr(t) for t in args[1:]), *(_ptr(t) for t in got),
+        B, walk_kernel.f_pad(entropy_cases.F), kw["passes"], kw["kb"], None,
+    )
+    assert rc == 0
+    assert want[0].any()
+    for field, g, w in zip(("rows", "bitpos", "err"), got, want):
+        assert torch.equal(g, w), f"{field} differs at {torch.nonzero(g != w)[:5].tolist()}"
 
 
 @pytest.mark.parametrize("depth,bsf,taps,C", _cases((9, 1), (9, 2), (32, 1), (32, 2)))
