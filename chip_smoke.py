@@ -9,7 +9,7 @@ Phases, one line each (any failure raises and exits non-zero):
   2. build of the CUDA kernels (csrc/, nvcc) and of the C++ host core
      (native/, g++);
   3. the element and LPC kernels against their plain PyTorch versions on
-     the card, B=256 packets of F=1024, 16-bit stereo, tolerance 0 (integer
+     the card, B=256 packets of F=512, 16-bit stereo, tolerance 0 (integer
      code): music, a partial final packet, near-white noise (escape
      elements), order-12 LPC (the 32-tap variant), order 31 with mode 1,
      and two corrupted packets;
@@ -23,8 +23,8 @@ Phases, one line each (any failure raises and exits non-zero):
      lanes), tolerance 0; kernel times by CUDA events (median of warm runs),
      each plain version's once;
   6. all three kernels against their plain versions, B=256 packets of
-     F=1024 (a plain element walk costs its op launches per row, and phases
-     3, 5 and 8 hold the kernels at F=4096), tolerance 0, on the inputs the
+     F=512 (a plain element walk costs its op launches per row, and phases
+     5 and 8 hold the kernels at F=4096), tolerance 0, on the inputs the
      decode path gives them: 24-bit
      stereo bytesShifted=1, 32-bit stereo bytesShifted=2, 24-bit mono and
      32-bit mono bytesShifted=1, each batch music ending in a partial
@@ -44,7 +44,7 @@ Phases, one line each (any failure raises and exits non-zero):
  10. a truncated packet through BatchDecoder(cfg) raises the port's
      DecodeError subclass;
  11. the forward LPC kernel and the encode kernel against their plain
-     versions, 256 lanes of F=1024 a regime, tolerance 0, on inputs built
+     versions, 256 lanes of F=512 a regime, tolerance 0, on inputs built
      as the encode path builds them: music at orders 4 and 6 (9 taps, int32
      coefficients; order 6 with mode 1; one call of 512 lanes), 12 and 30
      (32 taps, one call), a partial packet, ns == 0, near-white noise at
@@ -65,18 +65,19 @@ Phases, one line each (any failure raises and exits non-zero):
  13. both encode-side kernels against their plain versions on the inputs of
      every launch of one more such call (collected by the path itself: two
      forward LPC and two encode launches of L=2048 lanes), tolerance 0, no
-     lane overflowing its row; kernel times by CUDA events (median of warm
-     runs) beside their bounds, each plain version's once per launch;
+     lane overflowing its row: each kernel launched on each launch's own
+     inputs, its plain version run once over the lanes of all of them side
+     by side; kernel times by CUDA events (median of warm runs) beside
+     their bounds, each plain version's one run;
      encode_walk alone (the device part of the call) on the call's own
      arguments, by CUDA events.
  14. the packet kernel (every element of a packet in one launch) against
      its plain version, a host slot loop over the plain element walk, B=256
-     packets of F=512 (a plain element walk costs its op launches per row,
-     and a 7.1 packet has five elements), tolerance 0, every output on every
-     lane: 8 channels 24-bit bytesShifted=1, 6 channels 16-bit, 3 channels
-     20-bit, and stereo with SCE+SCE packets and FIL/DSE elements before the
-     audio; each batch music ending in a partial packet, near-white noise, a
-     truncated and a bit-flipped packet;
+     packets of F=512 (phase 16 holds it at F=4096), tolerance 0, every
+     output on every lane: 8 channels 24-bit bytesShifted=1, and stereo with
+     SCE+SCE packets, FIL/DSE elements before the audio and a packet past
+     the slot budget; each batch music ending in a partial packet,
+     near-white noise, a truncated and two bit-flipped packets;
  15. the multi-slot decode path at full width: B=2048 packets of F=4096
      48 kHz 24-bit 7.1 surround (SCE CPE CPE CPE SCE) with bytesShifted=1
      (174.8 s of audio) through BatchDecoder(cfg) on the default device,
@@ -84,21 +85,25 @@ Phases, one line each (any failure raises and exits non-zero):
      reads, no host fallback; decode_packets timed as in phase 4; one call
      under torch.profiler (the card's busy time, its top kernels) and one
      with every stage synchronised and timed by the host clock;
- 16. at phase 15's shapes: the packet kernel against a slot loop around the
-     element KERNEL on the card (kernel against kernel, every output), the
-     LPC kernel at L=16,384 lanes and the eight raw reads against their
-     plain versions, tolerance 0; their times by CUDA events beside their
-     bounds;
+ 16. at phase 15's shapes, on its batch: the packet kernel against its
+     plain version (five elements a packet: eight passes of 4096 rows of op
+     launches, minutes) and against a slot loop around the element KERNEL on
+     the card, every output on every lane; the LPC kernel at L=16,384 lanes
+     and the eight raw reads against their plain versions, tolerance 0;
+     their times by CUDA events beside their bounds; and the packet kernel
+     on the stereo batches of phases 4 and 7, every field of the walk equal
+     to the single-slot walk's, its time beside the element kernel's;
  17. the dense entropy kernel (the walk alone, no parse) on its probe path:
      streams made by the encode kernel, no framing.  Against its plain
      version at B=256, F=512, tolerance 0: two passes at kb 14 (suffix
      widths 17 and 32, start cursors, truncated streams, empty, partial and
      inactive lanes) and one pass at kb 6; at B=2048, F=4096, two passes,
      on the residual rows of phase 5's batch encoded by the encode kernel:
-     rows equal to what went in, end cursor equal to the encoder's bit
-     count; and on phase 4's packets themselves, from the entropy start
-     cursors of the element kernel's parse: rows and end cursors equal to
-     the element kernel's; its time and bound.
+     every output equal to the plain version's, rows equal to what went in,
+     end cursor equal to the encoder's bit count; and on phase 4's packets
+     themselves, from the entropy start cursors of the element kernel's
+     parse: rows and end cursors equal to the element kernel's; its time
+     and bound.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its path, max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
@@ -331,7 +336,7 @@ def main() -> int:
     # ---- phase 3: kernels against their plain versions (B=256) ----
     # Packets of F3 samples: a plain element walk costs its op launches per
     # row whatever B is, and phases 5 and 8 hold the kernels at F=4096.
-    F3 = 1024
+    F3 = 512
     cfg3 = dataclasses.replace(cfg, frame_length=F3)
     pk = []
     for i, (kw, ton, n) in enumerate([
@@ -457,8 +462,8 @@ def main() -> int:
         return words, sizes, w, shift_reads(w.shift_base, w.bs, w.role, w.ns)
 
     # Packets of F6 samples: a plain element walk costs its op launches per
-    # row whatever B is, and phases 3, 5 and 8 hold the kernels at F=4096.
-    F6 = 1024
+    # row whatever B is, and phases 5 and 8 hold the kernels at F=4096.
+    F6 = 512
     r_err, r_lines = 0, []
     for i, (depth, ch, bsf, quiet) in enumerate([
         (24, 2, 1, 0), (32, 2, 2, 0), (24, 1, 1, 0),
@@ -510,8 +515,11 @@ def main() -> int:
     hout = hdec.decode_packets(hpkts)
     h_launches = port.launch_counts()
     check_decode(hout, hpcm, 24)
-    if min(h_launches[k] for k in ("element", "lpc", "raw_read")) < 1:
-        raise AssertionError(f"a kernel of the hi-res path never launched: {h_launches}")
+    # One raw read per channel: the pair's fused read, and channel 1's own,
+    # which no lane of a pair reads for.
+    if (h_launches["element"], h_launches["lpc"], h_launches["raw_read"]) != (1, 1, 2):
+        raise AssertionError(f"hi-res path: launches {h_launches}, want 1 element, 1 lpc, "
+                             "2 raw reads")
     if hdec.impl.last_fallbacks:
         raise AssertionError(f"{hdec.impl.last_fallbacks} clean hi-res packets fell back")
     h_audio_s = total / hcfg.sample_rate
@@ -597,7 +605,7 @@ def main() -> int:
     # ---- phase 11: the encode-side kernels against their plain versions (B=256) ----
     i64 = torch.int64
     # Rows of F11 samples: phase 13 holds both kernels at F=4096.
-    F11 = 1024
+    F11 = 512
 
     def enc_lanes(cb, seed):
         """(x (256, F11) int32 on the card, ns (256,)): music, 20 lanes of
@@ -641,10 +649,14 @@ def main() -> int:
                 )
         return got[1], got[2], ms, max(errs)
 
-    def side_by_side(a, b, lane_axes):
-        """Two sets of a kernel's inputs as one, joined along each tensor's
-        lane axis (every lane carries its own order, mode and widths)."""
-        return tuple(torch.cat([p, q], dim=ax) for p, q, ax in zip(a, b, lane_axes))
+    LPC_LANE_AXES = (2, 0, 0, 0, 0, 0, 0, 0, 0)
+    ENCODE_LANE_AXES = (1, 1, 0, 0, 0, 0, 0)
+
+    def side_by_side(sets, lane_axes):
+        """Several sets of a kernel's inputs as one, joined along each
+        tensor's lane axis (every lane carries its own order, mode and
+        widths)."""
+        return tuple(torch.cat(ts, dim=ax) for ts, ax in zip(zip(*sets), lane_axes))
 
     def body_words(kb, cb):
         return (F11 * (9 + max(kb, cb) + 26) + 256) // 32 + 4
@@ -665,7 +677,7 @@ def main() -> int:
             if got_taps != taps:
                 raise AssertionError(f"order {order} runs at {got_taps} taps, not {taps}")
             sets.append((args, cb, ns11))
-        args = side_by_side(sets[0][0], sets[1][0], (2, 0, 0, 0, 0, 0, 0, 0, 0))
+        args = side_by_side([sets[0][0], sets[1][0]], LPC_LANE_AXES)
         res, ms, err = lpc_forward_check(args, dict(F=F11, taps=taps, forward=True))
         fwd_err = max(fwd_err, err)
         for i, (_, cb, ns11) in enumerate(sets):
@@ -684,7 +696,7 @@ def main() -> int:
     for kb, cbs in ((14, (17, 32)), (28, (32,))):
         args = entropy_inputs(cbs[0])
         if len(cbs) == 2:
-            args = side_by_side(args, entropy_inputs(cbs[1]), (1, 1, 0, 0, 0, 0, 0))
+            args = side_by_side([args, entropy_inputs(cbs[1])], ENCODE_LANE_AXES)
         bits11, ovf11, ms, err = encode_check(
             args, dict(kb=kb, F=F11, W_out=body_words(kb, max(cbs))))
         enc_err = max(enc_err, err)
@@ -807,25 +819,46 @@ def main() -> int:
     if n_calls != {"encode_walk": 1, "lpc_forward": e_launches["lpc_forward"],
                    "encode": e_launches["encode"]}:
         raise AssertionError(f"collected {n_calls} calls against launches {e_launches}")
-    t_fwd, fwd_plain, fwd_bounds = [], [], []
-    for f_args, f_kw in by["lpc_forward"]:
-        _, ms, err = lpc_forward_check(f_args, f_kw)
-        fwd_err = max(fwd_err, err)
-        fwd_plain.append(ms)
+    # The plain versions work lane by lane and cost their op launches per
+    # row whatever the lane count: each runs once, over the lanes of all the
+    # call's launches side by side, and is held against the outputs of the
+    # kernel launched on each launch's own inputs.
+    for name in ("lpc_forward", "encode"):
+        if any(kw != by[name][0][1] for _, kw in by[name]):
+            raise AssertionError(f"the call's {name} launches differ in their settings")
+    f_kw, e_kw = by["lpc_forward"][0][1], by["encode"][0][1]
+    got = torch.cat([lpc_kernel.lpc_fir(*a, **f_kw) for a, _ in by["lpc_forward"]], dim=1)
+    f_all = side_by_side([a for a, _ in by["lpc_forward"]], LPC_LANE_AXES)
+    want, fwd_plain_ms = timed(lambda: lpc_kernel.lpc_fir_reference(*f_all, **f_kw))
+    err = amax((got.to(i64) - want.to(i64)).abs())
+    if err != 0:
+        raise AssertionError(f"forward LPC differs from its plain version on the call's "
+                             f"launches: max {err}")
+    fwd_err = max(fwd_err, err)
+    del got, want, f_all
+    t_fwd, fwd_bounds = [], []
+    for f_args, _ in by["lpc_forward"]:
         t_fwd += cuda_times(lambda: lpc_kernel.lpc_fir(*f_args, **f_kw))
         rows, order13, ns_f, coefs13 = f_args[0], f_args[2], f_args[5], f_args[8]
         fwd_bounds.append(bound(
             4 * (2 * rows.numel() + 7 * order13.numel() + coefs13.numel()),  # rows in and out
             2 * float((order13.double() * ns_f.double()).sum()),  # MACs of the prediction
         ))
-    t_enc, enc_plain, enc_bounds, body_bytes = [], [], [], 0
-    for e_args, e_kw in by["encode"]:
-        bits13, ovf13, ms, err = encode_check(e_args, e_kw)
-        enc_err = max(enc_err, err)
-        if int(ovf13.sum()) != 0:
-            raise AssertionError(f"{int(ovf13.sum())} lanes overflowed their row")
-        enc_plain.append(ms)
-        body_bytes += int(bits13.sum()) // 8
+    outs = [encode_kernel.dense_encode(*a, **e_kw) for a, _ in by["encode"]]
+    got = [torch.cat(parts, dim=0) for parts in zip(*outs)]
+    e_all = side_by_side([a for a, _ in by["encode"]], ENCODE_LANE_AXES)
+    want, enc_plain_ms = timed(lambda: encode_kernel.dense_encode_reference(*e_all, **e_kw))
+    for name, a, b in zip(("words", "bits", "ovf"), got, want):
+        err = amax((a.to(i64) - b.to(i64)).abs())
+        if err != 0:
+            raise AssertionError(f"encode kernel on the call's launches: {name} differs from "
+                                 f"the plain version by up to {err}")
+    if int(got[2].sum()) != 0:
+        raise AssertionError(f"{int(got[2].sum())} lanes overflowed their row")
+    body_bytes = int(got[1].sum()) // 8
+    del outs, got, want, e_all
+    t_enc, enc_bounds = [], []
+    for e_args, _ in by["encode"]:
         t_enc += cuda_times(lambda: encode_kernel.dense_encode(*e_args, **e_kw))
         lanes13 = e_args[5].numel()
         enc_bounds.append(bound(
@@ -834,16 +867,15 @@ def main() -> int:
                  + lanes13 * e_kw["W_out"] + 2 * lanes13),
             16 * float(e_args[5].sum()),  # a Rice code: clz, divide, shifts, mean update
         ))
-    fwd_plain_ms, enc_plain_ms = statistics.median(fwd_plain), statistics.median(enc_plain)
     fwd_bound, enc_bound = max(fwd_bounds), max(enc_bounds)
-    f_kw, e_kw = by["lpc_forward"][0][1], by["encode"][0][1]
     print(
         f"phase 13 {tag} encode-side kernels vs plain on every launch of one "
         f"encode_packets_device call (B={n_pk}, F={F}; {n_calls['lpc_forward']} forward lpc, "
         f"{n_calls['encode']} encode), tolerance 0: max_abs_err forward lpc {fwd_err}, encode "
         f"{enc_err}, ovf 0; forward lpc taps {f_kw['taps']} ms {summary(t_fwd)} | plain "
-        f"{fwd_plain} | bound {fwd_bound[0]:.4f} by {fwd_bound[1]}; encode ms {summary(t_enc)} "
-        f"| plain {enc_plain} | bound {enc_bound[0]:.4f} by {enc_bound[1]}; bodies "
+        f"(one run over every launch's lanes) {fwd_plain_ms:.1f} | bound {fwd_bound[0]:.4f} by "
+        f"{fwd_bound[1]}; encode ms {summary(t_enc)} | plain (one run) {enc_plain_ms:.1f} | "
+        f"bound {enc_bound[0]:.4f} by {enc_bound[1]}; bodies "
         f"{body_bytes} bytes in rows of {e_kw['W_out']} words"
     )
     # The device part of the call alone (planes already on the card to words
@@ -910,7 +942,7 @@ def main() -> int:
         return end[: len(packets)].tolist()
 
     p_err, p_lines, p_plain = 0, [], []
-    for i, (depth, ch, bsf) in enumerate([(24, 8, 1), (16, 6, 0), (20, 3, 0), (16, 2, 0)]):
+    for i, (depth, ch, bsf) in ((0, (24, 8, 1)), (3, (16, 2, 0))):
         pc = hires_config(depth, ch, rate=48000, frame=F14)
         music = music_pcm(232 * F14 + F14 // 3, ch, SEED + 60 + i, depth=depth)
         noise = music_pcm(20 * F14, ch, SEED + 64 + i, tonality=0.0, depth=depth)
@@ -1077,8 +1109,34 @@ def main() -> int:
     if pk_err != 0:
         raise AssertionError(f"packet kernel differs from the slot loop around the element "
                              f"kernel at B={n_pk}: {pk_err}")
-    del got, loop
+    del loop
+    # The plain version on the same batch: five elements a packet, eight
+    # passes of F rows of op launches.
+    want_p, pk_plain_ms = timed(lambda: walk_kernel.dense_packet_reference(*p_args, **p_kw))
+    pk_err = max(pk_err, packet_diff(got, want_p))
+    if pk_err != 0:
+        names = ("rows", "err", "ns", "meta", "coefs")
+        where = [n for n, a, b in zip(names, got, want_p) if not torch.equal(a, b)]
+        raise AssertionError(f"packet kernel differs from its plain version at B={n_pk} "
+                             f"F={F} in {where}")
+    del got, want_p
     t_pk = cuda_times(lambda: walk_kernel.dense_packet(*p_args, **p_kw))
+
+    # The packet kernel on the two stereo batches, whose path takes the
+    # single-slot walk: every field of the walk equal, and its time beside
+    # the element kernel's (t_el, t_hel).
+    def stereo_packet_walk(c, words, sizes, single):
+        other = walk_batch(words, sizes, F=F, C=2, depth=c.bit_depth, pb=c.pb, mb=c.mb,
+                           kb=c.kb, fused=False)
+        differ = [n for n, a, b in zip(single._fields, single, other) if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"{c.bit_depth}-bit stereo: the packet walk differs from the "
+                                 f"single-slot walk in {differ}")
+        a, kw = packet_args(c, words, sizes)
+        return cuda_times(lambda: walk_kernel.dense_packet(*a, **kw))
+
+    t_pk16 = stereo_packet_walk(cfg, words2, sizes2, w2)
+    t_pkh = stereo_packet_walk(hcfg, hwords, hsizes, hw)
     pk_bound = bound(
         float(ssizes.double().sum()) / 8 + 4 * n_pk * (1 + 2 + 8 * (14 + 32))
         + 4 * 8 * walk_kernel.f_pad(F) * n_pk,
@@ -1113,9 +1171,13 @@ def main() -> int:
     s_rr_bound = bound(rr_bytes, rr_ops)
     print(
         f"phase 16 {tag} the 7.1 path's kernels at B={n_pk} F={F}, tolerance 0: packet kernel "
-        f"vs a slot loop around the element kernel max_abs_err {pk_err} (the loop {ms_loop:.1f} "
-        f"ms); lpc (L={L16}) vs plain {s_l_err}; raw reads vs plain {s_r_err}; packet ms "
-        f"{summary(t_pk)} | bound {pk_bound[0]:.4f} by {pk_bound[1]}; lpc taps 9 ms "
+        f"vs plain and vs a slot loop around the element kernel max_abs_err {pk_err} (plain "
+        f"{pk_plain_ms / 1e3:.1f} s, the loop {ms_loop:.1f} ms); lpc (L={L16}) vs plain "
+        f"{s_l_err}; raw reads vs plain {s_r_err}; packet ms {summary(t_pk)} | bound "
+        f"{pk_bound[0]:.4f} by {pk_bound[1]}; the packet kernel on the stereo batches, every "
+        f"field == the single-slot walk's: 16-bit ms {summary(t_pk16)} (element "
+        f"{statistics.median(t_el):.3f}), 24-bit ms {summary(t_pkh)} (element "
+        f"{statistics.median(t_hel):.3f}); lpc taps 9 ms "
         f"{summary(t_slpc)} | plain {s_lpc_plain:.1f} | bound {s_lpc_bound[0]:.4f} by "
         f"{s_lpc_bound[1]}; the 8 raw reads ({n_readers} with active lanes) ms {summary(t_srr)} "
         f"| bound {s_rr_bound[0]:.4f} by {s_rr_bound[1]}"
@@ -1226,7 +1288,14 @@ def main() -> int:
             f"cursor from the encoder's bit count by {cursor}, {int((err_e != 0).sum())} error "
             f"lanes, {de_launches} launches"
         )
-    de_err = max(de_err, round_trip, cursor)
+    want_e, de_plain_full = timed(lambda: walk_kernel.dense_entropy_reference(
+        *args_e, kb=cfg.kb, F=F, passes=2))
+    de_full = entropy_diff((rows_e, bp_e, err_e), want_e)
+    if de_full != 0:
+        raise AssertionError(f"dense entropy kernel differs from its plain version at B={B2} "
+                             f"F={F}: {de_full}")
+    del want_e
+    de_err = max(de_err, round_trip, cursor, de_full)
     t_de = cuda_times(lambda: walk_kernel.dense_entropy(*args_e, kb=cfg.kb, F=F, passes=2))
     de_bound = bound(
         float((counts_e[0] + counts_e[1]).sum()) / 8 + 4 * B2 * 9
@@ -1262,7 +1331,8 @@ def main() -> int:
         f"passes kb 14, 1 pass kb 6; suffix widths 17 and 32, start cursors, truncated, empty, "
         f"partial and inactive lanes) max_abs_err {de_err}, plain ms {de_plain}; at B={B2} "
         f"F={F}, 2 passes, streams from the encode kernel ({int(sum(counts_e).sum()) // 8} "
-        f"bytes): rows == the residuals encoded, cursor == the encoder's bits, {de_launches} "
+        f"bytes): every output == the plain version's (plain {de_plain_full / 1e3:.1f} s), "
+        f"rows == the residuals encoded, cursor == the encoder's bits, {de_launches} "
         f"launch; on phase 4's packets from the element kernel's start cursors: rows and "
         f"cursors == the element kernel's on {int(on.sum())} lanes; ms {summary(t_de)} | bound "
         f"{de_bound[0]:.4f} by {de_bound[1]}"
@@ -1286,8 +1356,8 @@ def main() -> int:
             "launches": launches["lpc"], "max_abs_err": l_err,
             "ms": statistics.median(t_lpc), "plain_ms": lpc_plain_ms,
             "bound_ms": lpc_bound[0], "bound_by": lpc_bound[1], "library_ms": None,
-            "ms_taps32_L512_F1024": statistics.median(t_l32),
-            "plain_ms_taps32_L512_F1024": plain_ms_32,
+            f"ms_taps32_L512_F{F3}": statistics.median(t_l32),
+            f"plain_ms_taps32_L512_F{F3}": plain_ms_32,
             "ms_hires": statistics.median(t_hlpc), "plain_ms_hires": h_lpc_plain_ms,
             "bound_ms_hires": h_lpc_bound[0],
         },
@@ -1322,10 +1392,12 @@ def main() -> int:
             "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:747 (the slot loop around it, "
                         "saprobe_alac_tpu/ops/walk.py:1110)",
             "launches": s_launches["packet"], "max_abs_err": max(p_err, pk_err),
-            "ms": statistics.median(t_pk), "plain_ms": p_plain[0],
+            "ms": statistics.median(t_pk), "plain_ms": pk_plain_ms,
             "bound_ms": pk_bound[0], "bound_by": pk_bound[1], "library_ms": None,
-            "plain_is": "one run at B=256, F=512, 8 channels (it does not run at F=4096)",
+            f"plain_ms_B256_F{F14}": p_plain[0],
             "element_kernel_slot_loop_ms": ms_loop,
+            "ms_stereo_16bit": statistics.median(t_pk16),
+            "ms_stereo_hires": statistics.median(t_pkh),
             "lpc_ms_L16384": statistics.median(t_slpc), "lpc_plain_ms_L16384": s_lpc_plain,
             "lpc_bound_ms_L16384": s_lpc_bound[0], "lpc_launches": s_launches["lpc"],
             "raw_reads_ms": statistics.median(t_srr), "raw_reads_bound_ms": s_rr_bound[0],
@@ -1336,9 +1408,9 @@ def main() -> int:
             "source": "saprobe_alac_tpu_torch/csrc/dense_entropy_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:629",
             "launches": de_launches, "max_abs_err": de_err,
-            "ms": statistics.median(t_de), "plain_ms": de_plain[0],
+            "ms": statistics.median(t_de), "plain_ms": de_plain_full,
             "bound_ms": de_bound[0], "bound_by": de_bound[1], "library_ms": None,
-            "plain_is": "one run at B=256, F=512, two passes",
+            f"plain_ms_B{B17}_F{F17}": de_plain[0],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -105,12 +105,8 @@ class TorchBatchDecoder:
         cfg = self.config
         words, sizes = self._stage(packets)
         F, C, depth = cfg.frame_length, cfg.num_channels, cfg.bit_depth
-        # The JAX package's choice: the single-slot layout where one element
-        # fills a packet's channels, the packet walk above that.
-        fused = C <= 2
-        w = walk_batch(
-            words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb, fused=fused
-        )
+        # walk_batch picks the layout from C.
+        w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
         L = words.shape[0] * C
         mix = lpc_batch(
             w.res,
@@ -131,9 +127,7 @@ class TorchBatchDecoder:
         # reader runs for every such batch, as in the JAX package's dense path.
         shift_vals = None
         if depth in (24, 32):
-            shift_vals = extract_shift(
-                words, w.shift_base, w.bs, w.role, w.ns, F=F, C=C, single_slot=fused
-            )
+            shift_vals = extract_shift(words, w.shift_base, w.bs, w.role, w.ns, F=F, C=C)
         packed = finish_packed(
             mix, shift_vals, w.bs, w.mixbits, w.mixres, w.role, w.out_chan, w.filled,
             C=C, depth=depth,

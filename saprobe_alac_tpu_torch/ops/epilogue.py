@@ -31,28 +31,24 @@ def shift_reads(shift_base, bs, role, ns, c=0):
     return tuple(x.to(torch.int32).contiguous() for x in lanes)
 
 
-def extract_shift(words, shift_base, bs, role, ns, *, F, C, single_slot=False):
+def extract_shift(words, shift_base, bs, role, ns, *, F, C):
     """The shift region's low bits: (F, C, B) int32 F-major planes, equal to
     the JAX package's `extract_shift_kernel` (epilogue.py:109-142): one read
-    per channel with `shift_reads`, the V halves split from channel c - 1's
-    fused read.  With ``single_slot`` (metadata of the single-slot walk)
-    channel 1 is never a reader of its own: it holds role 2 or bs 0
-    (walk.py ``cols``), so channel 0's read serves both and channel 1's is
-    not launched; the JAX package runs an all-inactive read there."""
+    per channel with `shift_reads` (C launches, a channel that no lane reads
+    for included, as there), the V halves split from channel c - 1's fused
+    read."""
     # Shift bits are OR-ed back in unsigned.
-    readers = range(1 if single_slot else C)
-    reads = {
-        c: raw_read(words, *shift_reads(shift_base, bs, role, ns, c), F=F, signed=False)[:F]
+    reads = [
+        raw_read(words, *shift_reads(shift_base, bs, role, ns, c), F=F, signed=False)[:F]
         .to(torch.int64)
-        for c in readers
-    }
+        for c in range(C)
+    ]
     planes = []
     for c in range(C):
         width = bs[:, c] * 8
-        read = reads.get(c)
         # U lanes: high half of the fused read; mono lanes: the value itself.
-        val = 0 if read is None else torch.where(role[:, c] == 1, ushr(read, width), read)
-        if c > 0 and c - 1 in reads:
+        val = torch.where(role[:, c] == 1, ushr(reads[c], width), reads[c])
+        if c > 0:
             # V lanes: low half of the partner channel's fused read.
             v_mask = wrap(shl(torch.ones_like(width), width).to(torch.int64) - 1)
             val = torch.where(role[:, c] == 2, reads[c - 1] & v_mask, val)

@@ -280,30 +280,33 @@ def _walk_pass(words, size_bits, out, st, *, raw, rstep, rawcb, max_size, ns, pb
         mean = torch.where(dec, mean_n, mean)
         zmode = torch.where(dec, 0, zmode)
 
-        # Zero-run mode (golomb.go:223-246).
+        # Zero-run mode (golomb.go:223-246).  A row on which no lane enters
+        # it leaves every operand of this block as it was: skipping it there
+        # saves two fifths of a row's op launches on music.
         zc = dec & (u(shl(mean, 2)) < 512) & (count < ns)
-        k32 = torch.clamp(clz(mean) - 24 + (u(mean + 16) >> 6), min=0)
-        mz = wrap(shl(torch.ones_like(k32), k32) - 1) & wb_mask
-        zwin = window32(words, off)
-        zpre = clz(wrap(~zwin))
-        z_esc = zpre >= 9
-        zval_esc = ushr(shl(zwin, 9), 16)
-        zv = ushr(shl(zwin, zpre + 1), 32 - k32.clamp(min=1))
-        zv = torch.where(k32 == 0, 0, zv)
-        zvbig = zv >= 2
-        zrun = torch.where(
-            z_esc, zval_esc,
-            torch.where(zvbig, wrap(zpre * mz + zv - 1), wrap(zpre * mz)),
-        )
-        zbits = torch.where(z_esc, 25, zpre + 1 + torch.where(zvbig, k32, k32 - 1))
-        zover = zc & (wrap(count + zrun) > ns)
-        err = torch.where(zover, ERR_SAMPLES, err)
-        act = act & ~zover
-        zc = zc & ~zover
-        zrem = torch.where(zc, zrun, zrem)
-        off = torch.where(zc, wrap(off + zbits), off)
-        zmode = torch.where(zc, torch.where(zrun >= 65535, 0, 1), zmode)
-        mean = torch.where(zc, 0, mean)
+        if bool(zc.any()):
+            k32 = torch.clamp(clz(mean) - 24 + (u(mean + 16) >> 6), min=0)
+            mz = wrap(shl(torch.ones_like(k32), k32) - 1) & wb_mask
+            zwin = window32(words, off)
+            zpre = clz(wrap(~zwin))
+            z_esc = zpre >= 9
+            zval_esc = ushr(shl(zwin, 9), 16)
+            zv = ushr(shl(zwin, zpre + 1), 32 - k32.clamp(min=1))
+            zv = torch.where(k32 == 0, 0, zv)
+            zvbig = zv >= 2
+            zrun = torch.where(
+                z_esc, zval_esc,
+                torch.where(zvbig, wrap(zpre * mz + zv - 1), wrap(zpre * mz)),
+            )
+            zbits = torch.where(z_esc, 25, zpre + 1 + torch.where(zvbig, k32, k32 - 1))
+            zover = zc & (wrap(count + zrun) > ns)
+            err = torch.where(zover, ERR_SAMPLES, err)
+            act = act & ~zover
+            zc = zc & ~zover
+            zrem = torch.where(zc, zrun, zrem)
+            off = torch.where(zc, wrap(off + zbits), off)
+            zmode = torch.where(zc, torch.where(zrun >= 65535, 0, 1), zmode)
+            mean = torch.where(zc, 0, mean)
 
         act = act & (count < ns) & (err == ERR_NONE)
     return act, off, err, count, mean, zmode, zrem
