@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 Phases, one line each (any failure raises and exits non-zero):
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
   2. build of the CUDA kernels (csrc/, nvcc) and of the C++ host core
-     (native/, g++);
+     (native/, g++); the three walk kernels' registers, stack and spills as
+     ptxas reports them;
   3. the element and LPC kernels against their plain PyTorch versions on
      the card, B=256 packets of F=512, 16-bit stereo, tolerance 0 (integer
      code): music, a partial final packet, near-white noise (escape
@@ -15,13 +16,15 @@ Phases, one line each (any failure raises and exits non-zero):
      and two corrupted packets;
   4. the decode path at full size: B=2048 packets of F=4096 44.1 kHz 16-bit
      stereo music (about 190 s) through BatchDecoder(cfg, "cuda"), bytes
-     equal to the source PCM, both kernels' launch counts above zero, no
-     packet on the host fallback; then decode_packets timed by the host
+     equal to the source PCM, one packet walk and one LPC launch and no
+     element launch, no packet on the host fallback; then decode_packets timed by the host
      clock (median of warm runs, x realtime);
   5. each kernel against its plain version at the shapes phase 4 gave it
-     (the element kernel on the B=2048 batch, the LPC at 9 taps on its 4096
+     (the packet kernel on the B=2048 batch, the LPC at 9 taps on its 4096
      lanes), tolerance 0; kernel times by CUDA events (median of warm runs),
-     each plain version's once;
+     each plain version's once; the element kernel (off the decode path)
+     timed on the same batch; each walk kernel's ns and SM cycles per
+     decoded row, at the clock nvidia-smi reads while it runs;
   6. all three kernels against their plain versions, B=256 packets of
      F=512 (a plain element walk costs its op launches per row, and phases
      5 and 8 hold the kernels at F=4096), tolerance 0, on the inputs the
@@ -33,10 +36,11 @@ Phases, one line each (any failure raises and exits non-zero):
   7. the hi-res decode path at full size: B=2048 packets of F=4096 96 kHz
      24-bit stereo music with bytesShifted=1 (87.4 s of audio) through
      BatchDecoder(cfg) on the default device, bytes equal to the source as
-     3-byte samples, the element, LPC and raw reader launch counts above
-     zero, no host fallback; decode_packets timed as in phase 4;
-  8. all three kernels against their plain versions at the shapes phase 7
-     gave them, tolerance 0; their times by CUDA events beside their bounds
+     3-byte samples, one packet walk, one LPC and two raw reader launches
+     and no element launch, no host fallback; decode_packets timed as in
+     phase 4;
+  8. the packet, LPC and raw reader kernels against their plain versions at
+     the shapes phase 7 gave them, tolerance 0; their times by CUDA events beside their bounds
      and the plain versions' times; the raw reader cold (L2 flushed before
      each launch) and warm (20 launches back to back);
   9. 20-bit stereo and 32-bit stereo bytesShifted=2 decodes (B=256), bytes
@@ -87,12 +91,9 @@ Phases, one line each (any failure raises and exits non-zero):
      with every stage synchronised and timed by the host clock;
  16. at phase 15's shapes, on its batch: the packet kernel against its
      plain version (five elements a packet: eight passes of 4096 rows of op
-     launches, minutes) and against a slot loop around the element KERNEL on
-     the card, every output on every lane; the LPC kernel at L=16,384 lanes
-     and the eight raw reads against their plain versions, tolerance 0;
-     their times by CUDA events beside their bounds; and the packet kernel
-     on the stereo batches of phases 4 and 7, every field of the walk equal
-     to the single-slot walk's, its time beside the element kernel's;
+     launches, minutes), every output on every lane; the LPC kernel at
+     L=16,384 lanes and the eight raw reads against their plain versions,
+     tolerance 0; their times by CUDA events beside their bounds;
  17. the dense entropy kernel (the walk alone, no parse) on its probe path:
      streams made by the encode kernel, no framing.  Against its plain
      version at B=256, F=512, tolerance 0: two passes at kb 14 (suffix
@@ -102,8 +103,9 @@ Phases, one line each (any failure raises and exits non-zero):
      every output equal to the plain version's, rows equal to what went in,
      end cursor equal to the encoder's bit count; and on phase 4's packets
      themselves, from the entropy start cursors of the element kernel's
-     parse: rows and end cursors equal to the element kernel's; its time
-     and bound.
+     parse: rows and end cursors equal to the element kernel's, and that
+     element kernel launch (its count in the JSON line) against its plain
+     version at B=2048, F=4096, tolerance 0; its time and bound.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its path, max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
@@ -247,6 +249,22 @@ def element_diff(got, want, M_NS):
     )
 
 
+def walk_ptxas(log: str) -> dict:
+    """Registers, stack and spills of the three walk kernels, from the
+    build's ``-Xptxas -v`` report: {kernel: "N registers, ... spill ..."}."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((k for k in ("element_kernel", "packet_kernel", "dense_entropy_kernel")
+                        if k in ln), None)
+        elif cur and "stack frame" in ln:
+            out[cur] = ln.strip()
+        elif cur and "Used" in ln and "registers" in ln:
+            out[cur] = ln.split(":", 1)[1].strip() + "; " + out.get(cur, "")
+            cur = None
+    return out
+
+
 def lpc_diff(a, b, ns):
     """Max abs difference of LPC outputs over rows t < ns of each lane."""
     valid = torch.arange(a.shape[0], device=a.device)[:, None] < ns[None, :]
@@ -266,6 +284,7 @@ def main() -> int:
     from saprobe_alac_tpu_torch.ops.lpc import lpc_lanes
     from saprobe_alac_tpu_torch.ops.raw_reader import raw_read, raw_read_reference
     from saprobe_alac_tpu_torch.ops.walk import walk_batch
+    from saprobe_alac_tpu_torch.encoder.spec import CHANNEL_LAYOUT_OFFSETS
 
     dev = torch.device("cuda")
     card = card_line()
@@ -280,13 +299,15 @@ def main() -> int:
     t_gxx = time.perf_counter() - t0 - t_nvcc
     regs = [ln.strip() for ln in _build.build_log().splitlines() if "registers" in ln or "spill" in ln]
     print(f"phase 2 build: kernels {t_nvcc:.3f} s, host core {t_gxx:.3f} s; ptxas: {' | '.join(regs)}")
+    walk_regs = walk_ptxas(_build.build_log())
+    print(f"phase 2 walk kernels (ptxas): {walk_regs}")
 
     cfg = port.PacketConfig(
         frame_length=F, bit_depth=16, num_channels=2, pb=40, mb=10, kb=14,
         max_run=255, max_frame_bytes=0, avg_bit_rate=0, sample_rate=44100,
     )
     C = 2
-    i32 = torch.int32
+    i32, i64 = torch.int32, torch.int64
     stager = TorchBatchDecoder(cfg, dev)
 
     def element_kw(c):
@@ -315,23 +336,72 @@ def main() -> int:
         )
         return (w.res, *lpc_lanes(*lane))
 
-    def check_walk_lpc(c, words, sizes, w):
-        """The element kernel and the 9-tap LPC kernel against their plain
-        versions on one batch: (element err, LPC err, element plain ms, LPC
-        plain ms, error lanes)."""
+    def packet_args(c, words, sizes):
+        """The packet kernel's inputs as walk_batch builds them."""
+        offsets = torch.tensor(CHANNEL_LAYOUT_OFFSETS[c.num_channels - 1], dtype=i32, device=dev)
+        kw = dict(kb=c.kb, F=c.frame_length, C=c.num_channels, depth=c.bit_depth, pb_cfg=c.pb,
+                  mb_cfg=c.mb)
+        return (words, sizes, offsets), kw
+
+    def packet_diff(got, want):
+        """Max abs difference over every output of the packet walk, every
+        lane (error lanes too: both run the same walk)."""
+        return max(amax((a.to(i64) - b.to(i64)).abs()) for a, b in zip(got, want))
+
+    def check_walk_lpc(c, words, sizes, w, walker="element"):
+        """A walk kernel (the element kernel, or the packet kernel the
+        decode path runs) and the 9-tap LPC kernel against their plain
+        versions on one batch: (walk err, LPC err, walk plain ms, LPC plain
+        ms, error lanes)."""
         ch, Fc = c.num_channels, c.frame_length
-        args, kw = element_args(words, sizes, ch, Fc), element_kw(c)
-        want, el_ms = timed(lambda: walk_kernel.dense_element_reference(*args, **kw))
-        e = element_diff(walk_kernel.dense_element(*args, **kw), want, walk_kernel.M_NS)
+        if walker == "element":
+            args, kw = element_args(words, sizes, ch, Fc), element_kw(c)
+            want, el_ms = timed(lambda: walk_kernel.dense_element_reference(*args, **kw))
+            e = element_diff(walk_kernel.dense_element(*args, **kw), want, walk_kernel.M_NS)
+            n_err = int((want[2] != 0).sum())
+        else:
+            args, kw = packet_args(c, words, sizes)
+            want, el_ms = timed(lambda: walk_kernel.dense_packet_reference(*args, **kw))
+            e = packet_diff(walk_kernel.dense_packet(*args, **kw), want)
+            n_err = int((want[1] != 0).sum())
         lin = lanes(w, ch)
         want_l, lpc_ms = timed(lambda: lpc_kernel.lpc_fir_reference(*lin, F=Fc, taps=9))
         lp = lpc_diff(lpc_kernel.lpc_fir(*lin, F=Fc, taps=9), want_l, w.ns.repeat(ch))
         if e != 0 or lp != 0:
             raise AssertionError(
-                f"{c.bit_depth}-bit C={ch} B={words.shape[0]}: element {e}, LPC {lp} "
+                f"{c.bit_depth}-bit C={ch} B={words.shape[0]}: {walker} {e}, LPC {lp} "
                 "against their plain versions"
             )
-        return e, lp, el_ms, lpc_ms, int((want[2] != 0).sum())
+        return e, lp, el_ms, lpc_ms, n_err
+
+    def walk_clock(fn, rows, ms):
+        """(ns, SM cycles) per decoded row of a walk kernel that took ``ms``
+        with ``rows`` rows a thread, at the SM clock nvidia-smi reads while
+        the kernel runs: launches of fn() are queued from before nvidia-smi
+        starts until it has answered, a few at a time, so the card is busy
+        for the whole read."""
+        for _ in range(4):
+            fn()
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+            stdout=subprocess.PIPE, text=True,
+        )
+        try:
+            t_end = time.monotonic() + 60
+            while smi.poll() is None and time.monotonic() < t_end:
+                for _ in range(4):
+                    fn()
+                torch.cuda.synchronize()
+            out, _ = smi.communicate(timeout=10)
+        finally:
+            if smi.poll() is None:
+                smi.kill()
+                smi.wait()
+        torch.cuda.synchronize()
+        if smi.returncode != 0:
+            raise RuntimeError(f"nvidia-smi clocks.sm failed: exit {smi.returncode}")
+        mhz = float(out.split()[0])
+        return ms * 1e6 / rows, ms * 1e-3 * mhz * 1e6 / rows, mhz
 
     # ---- phase 3: kernels against their plain versions (B=256) ----
     # Packets of F3 samples: a plain element walk costs its op launches per
@@ -388,8 +458,9 @@ def main() -> int:
     out = dec.decode_packets(pkts)
     launches = port.launch_counts()
     check_decode(out, pcm, 16)
-    if min(launches["element"], launches["lpc"]) < 1:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    # One packet walk for every C: the element kernel is off the decode path.
+    if (launches["packet"], launches["lpc"], launches["element"]) != (1, 1, 0):
+        raise AssertionError(f"16-bit path: launches {launches}, want 1 packet, 1 lpc, 0 element")
     if dec.impl.last_fallbacks:
         raise AssertionError(f"{dec.impl.last_fallbacks} clean packets fell back to the host")
     audio_s = total / cfg.sample_rate
@@ -411,18 +482,41 @@ def main() -> int:
     words2, sizes2 = stager._stage(pkts)
     B2 = words2.shape[0]
     w2 = walk(cfg, words2, sizes2)
-    e5, l5, el_plain_ms, lpc_plain_ms, _ = check_walk_lpc(cfg, words2, sizes2, w2)
-    e_err, l_err = max(e_err, e5), max(l_err, l5)
+    pw_err, l5, pk_plain16, lpc_plain_ms, _ = check_walk_lpc(cfg, words2, sizes2, w2, "packet")
+    l_err = max(l_err, l5)
     e_args2, lpc_in2 = element_args(words2, sizes2), lanes(w2)
-    e_kw = element_kw(cfg)
-    t_el = cuda_times(lambda: walk_kernel.dense_element(*e_args2, **e_kw))
+    el_kw = element_kw(cfg)
+    p_args2, p_kw2 = packet_args(cfg, words2, sizes2)
+    rows_st = 2 * walk_kernel.f_pad(F)  # rows a thread walks on a stereo batch
+    t_pk16 = cuda_times(lambda: walk_kernel.dense_packet(*p_args2, **p_kw2))
+    clk_pk16 = walk_clock(lambda: walk_kernel.dense_packet(*p_args2, **p_kw2), rows_st,
+                          statistics.median(t_pk16))
+    # The element kernel, off the decode path, on the same batch: its time
+    # (phase 17 holds it against its plain version at this shape).
+    t_el = cuda_times(lambda: walk_kernel.dense_element(*e_args2, **el_kw))
+    clk_el = walk_clock(lambda: walk_kernel.dense_element(*e_args2, **el_kw), rows_st,
+                        statistics.median(t_el))
     t_lpc = cuda_times(lambda: lpc_kernel.lpc_fir(*lpc_in2, F=F, taps=9))
     print(
         f"phase 5 {tag} kernels vs plain at B={B2} (L={2 * B2}), tolerance 0: max_abs_err "
-        f"element {e_err}, lpc {l_err}; element ms {summary(t_el)} | plain {el_plain_ms:.1f}; "
+        f"packet {pw_err}, lpc {l_err}; packet ms {summary(t_pk16)} | plain {pk_plain16:.1f} | "
+        f"{clk_pk16[0]:.1f} ns, {clk_pk16[1]:.0f} cycles a row at {clk_pk16[2]:.0f} MHz; "
+        f"element (not on the path) ms {summary(t_el)} | {clk_el[0]:.1f} ns, "
+        f"{clk_el[1]:.0f} cycles a row at {clk_el[2]:.0f} MHz; "
         f"lpc taps 9 ms {summary(t_lpc)} | plain {lpc_plain_ms:.1f}; lpc taps 32 at "
         f"L={2 * B}, F={F3} ms {summary(t_l32)} | plain {plain_ms_32:.1f}"
     )
+
+    def packet_bound(sizes, ns, channels):
+        """Bound of the packet kernel's work on one batch: the packets' own
+        bits, the lane inputs and every output once; a Rice decode per
+        sample and channel."""
+        Bp = sizes.numel()
+        return bound(
+            float(sizes.double().sum()) / 8 + 4 * Bp * (1 + 2 + channels * (14 + 32))
+            + 4 * channels * walk_kernel.f_pad(F) * Bp,
+            8 * channels * float(ns.double().sum()),
+        )
 
     def walk_bounds(w, sizes, lpc_in):
         """Bounds of the element and 9-tap LPC kernels' work on one batch:
@@ -446,6 +540,7 @@ def main() -> int:
         return el, lp
 
     el_bound, lpc_bound = walk_bounds(w2, sizes2, lpc_in2)
+    pk16_bound = packet_bound(sizes2, w2.ns, 2)
 
     # ---- phase 6: every kernel against its plain version on hi-res batches (B=256) ----
     def hires_config(depth, channels, rate=96000, frame=F):
@@ -517,9 +612,10 @@ def main() -> int:
     check_decode(hout, hpcm, 24)
     # One raw read per channel: the pair's fused read, and channel 1's own,
     # which no lane of a pair reads for.
-    if (h_launches["element"], h_launches["lpc"], h_launches["raw_read"]) != (1, 1, 2):
-        raise AssertionError(f"hi-res path: launches {h_launches}, want 1 element, 1 lpc, "
-                             "2 raw reads")
+    if (h_launches["packet"], h_launches["lpc"], h_launches["raw_read"],
+            h_launches["element"]) != (1, 1, 2, 0):
+        raise AssertionError(f"hi-res path: launches {h_launches}, want 1 packet, 1 lpc, "
+                             "2 raw reads, 0 element")
     if hdec.impl.last_fallbacks:
         raise AssertionError(f"{hdec.impl.last_fallbacks} clean hi-res packets fell back")
     h_audio_s = total / hcfg.sample_rate
@@ -538,17 +634,22 @@ def main() -> int:
 
     # ---- phase 8: every kernel vs plain at the hi-res path's shapes, and times ----
     hwords, hsizes, hw, hargs = hires_inputs(hcfg, hpkts)
-    e8, l8, h_el_plain_ms, h_lpc_plain_ms, _ = check_walk_lpc(hcfg, hwords, hsizes, hw)
-    e_err, l_err = max(e_err, e8), max(l_err, l8)
+    e8, l8, pk_plain_h, h_lpc_plain_ms, _ = check_walk_lpc(hcfg, hwords, hsizes, hw, "packet")
+    pw_err, l_err = max(pw_err, e8), max(l_err, l8)
     want = raw_read_reference(hwords, *hargs, F=F)
     r_err = max(r_err, amax((raw_read(hwords, *hargs, F=F) - want).abs()))
     if r_err != 0:
         raise AssertionError(f"raw reader differs from its plain version at B={n_pk}: {r_err}")
     h_e_args, h_lpc_in = element_args(hwords, hsizes), lanes(hw)
     h_e_kw = element_kw(hcfg)
+    h_p_args, h_p_kw = packet_args(hcfg, hwords, hsizes)
+    t_pkh = cuda_times(lambda: walk_kernel.dense_packet(*h_p_args, **h_p_kw))
+    clk_pkh = walk_clock(lambda: walk_kernel.dense_packet(*h_p_args, **h_p_kw), rows_st,
+                         statistics.median(t_pkh))
     t_hel = cuda_times(lambda: walk_kernel.dense_element(*h_e_args, **h_e_kw))
     t_hlpc = cuda_times(lambda: lpc_kernel.lpc_fir(*h_lpc_in, F=F, taps=9))
     h_el_bound, h_lpc_bound = walk_bounds(hw, hsizes, h_lpc_in)
+    pkh_bound = packet_bound(hsizes, hw.ns, 2)
     # The raw reader cold (L2 flushed by a 1 GiB write before each launch,
     # as after the walk and the LPC on the real path) and warm (20 launches
     # back to back over the same ~50 MB, about the size of L2).
@@ -571,8 +672,10 @@ def main() -> int:
     )
     print(
         f"phase 8 {tag} kernels vs plain at B={n_pk} F={F} 24-bit stereo bytesShifted=1, "
-        f"tolerance 0: max_abs_err element {e_err}, lpc {l_err}, raw reader {r_err}; "
-        f"element ms {summary(t_hel)} | plain {h_el_plain_ms:.1f} | bound "
+        f"tolerance 0: max_abs_err packet {pw_err}, lpc {l_err}, raw reader {r_err}; "
+        f"packet ms {summary(t_pkh)} | plain {pk_plain_h:.1f} | bound {pkh_bound[0]:.4f} by "
+        f"{pkh_bound[1]} | {clk_pkh[0]:.1f} ns, {clk_pkh[1]:.0f} cycles a row at "
+        f"{clk_pkh[2]:.0f} MHz; element (not on the path) ms {summary(t_hel)} | bound "
         f"{h_el_bound[0]:.4f} by {h_el_bound[1]}; lpc taps 9 ms {summary(t_hlpc)} | plain "
         f"{h_lpc_plain_ms:.1f} | bound {h_lpc_bound[0]:.4f} by {h_lpc_bound[1]}; raw reader "
         f"(the pair as one {int(step[0])}-bit field) ms cold {summary(t_rr)} | warm "
@@ -603,7 +706,6 @@ def main() -> int:
     print(f"phase 10 truncated packet through BatchDecoder(cfg): raised the port's {err_name}")
 
     # ---- phase 11: the encode-side kernels against their plain versions (B=256) ----
-    i64 = torch.int64
     # Rows of F11 samples: phase 13 holds both kernels at F=4096.
     F11 = 512
 
@@ -893,21 +995,7 @@ def main() -> int:
 
 
     # ---- phase 14: the packet kernel against its plain version (B=256, F=512) ----
-    from saprobe_alac_tpu_torch.encoder.spec import CHANNEL_LAYOUT_OFFSETS
-
     F14 = 512
-
-    def packet_args(c, words, sizes):
-        """The packet kernel's inputs as walk_batch builds them."""
-        offsets = torch.tensor(CHANNEL_LAYOUT_OFFSETS[c.num_channels - 1], dtype=i32, device=dev)
-        kw = dict(kb=c.kb, F=c.frame_length, C=c.num_channels, depth=c.bit_depth, pb_cfg=c.pb,
-                  mb_cfg=c.mb)
-        return (words, sizes, offsets), kw
-
-    def packet_diff(got, want):
-        """Max abs difference over every output of the packet walk, every
-        lane (error lanes too: both run the same walk)."""
-        return max(amax((a.to(i64) - b.to(i64)).abs()) for a, b in zip(got, want))
 
     def with_prefix(prefix_bits: str, packet: bytes) -> bytes:
         """``packet`` with elements written before it, re-aligned to bytes."""
@@ -1080,7 +1168,7 @@ def main() -> int:
     impl = sdec.impl
     (swords, ssizes), ms_stage = stage_ms(lambda: impl._stage(spkts))
     sw, ms_walk = stage_ms(lambda: walk_batch(
-        swords, ssizes, F=F, C=8, depth=24, pb=scfg.pb, mb=scfg.mb, kb=scfg.kb, fused=False))
+        swords, ssizes, F=F, C=8, depth=24, pb=scfg.pb, mb=scfg.mb, kb=scfg.kb))
     s_lpc_in = lanes(sw, 8)
     smix, ms_lpc = stage_ms(lambda: lpc_kernel.lpc_fir(*s_lpc_in, F=F, taps=9)[:F])
     sshift, ms_shift = stage_ms(lambda: extract_shift(
@@ -1103,17 +1191,10 @@ def main() -> int:
     # ---- phase 16: the 7.1 path's kernels at its shapes ----
     p_args, p_kw = packet_args(scfg, swords, ssizes)
     got = walk_kernel.dense_packet(*p_args, **p_kw)
-    loop, ms_loop = timed(lambda: walk_kernel.dense_packet_reference(
-        *p_args, **p_kw, element=walk_kernel.dense_element))
-    pk_err = packet_diff(got, loop)
-    if pk_err != 0:
-        raise AssertionError(f"packet kernel differs from the slot loop around the element "
-                             f"kernel at B={n_pk}: {pk_err}")
-    del loop
     # The plain version on the same batch: five elements a packet, eight
     # passes of F rows of op launches.
     want_p, pk_plain_ms = timed(lambda: walk_kernel.dense_packet_reference(*p_args, **p_kw))
-    pk_err = max(pk_err, packet_diff(got, want_p))
+    pk_err = packet_diff(got, want_p)
     if pk_err != 0:
         names = ("rows", "err", "ns", "meta", "coefs")
         where = [n for n, a, b in zip(names, got, want_p) if not torch.equal(a, b)]
@@ -1121,27 +1202,9 @@ def main() -> int:
                              f"F={F} in {where}")
     del got, want_p
     t_pk = cuda_times(lambda: walk_kernel.dense_packet(*p_args, **p_kw))
-
-    # The packet kernel on the two stereo batches, whose path takes the
-    # single-slot walk: every field of the walk equal, and its time beside
-    # the element kernel's (t_el, t_hel).
-    def stereo_packet_walk(c, words, sizes, single):
-        other = walk_batch(words, sizes, F=F, C=2, depth=c.bit_depth, pb=c.pb, mb=c.mb,
-                           kb=c.kb, fused=False)
-        differ = [n for n, a, b in zip(single._fields, single, other) if not torch.equal(a, b)]
-        if differ:
-            raise AssertionError(f"{c.bit_depth}-bit stereo: the packet walk differs from the "
-                                 f"single-slot walk in {differ}")
-        a, kw = packet_args(c, words, sizes)
-        return cuda_times(lambda: walk_kernel.dense_packet(*a, **kw))
-
-    t_pk16 = stereo_packet_walk(cfg, words2, sizes2, w2)
-    t_pkh = stereo_packet_walk(hcfg, hwords, hsizes, hw)
-    pk_bound = bound(
-        float(ssizes.double().sum()) / 8 + 4 * n_pk * (1 + 2 + 8 * (14 + 32))
-        + 4 * 8 * walk_kernel.f_pad(F) * n_pk,
-        8 * 8 * float(sw.ns.double().sum()),  # a Rice decode per sample and channel
-    )
+    clk_pk = walk_clock(lambda: walk_kernel.dense_packet(*p_args, **p_kw),
+                        8 * walk_kernel.f_pad(F), statistics.median(t_pk))
+    pk_bound = packet_bound(ssizes, sw.ns, 8)
     want_l, s_lpc_plain = timed(lambda: lpc_kernel.lpc_fir_reference(*s_lpc_in, F=F, taps=9))
     s_l_err = lpc_diff(lpc_kernel.lpc_fir(*s_lpc_in, F=F, taps=9), want_l, sw.ns.repeat(8))
     del want_l
@@ -1171,13 +1234,10 @@ def main() -> int:
     s_rr_bound = bound(rr_bytes, rr_ops)
     print(
         f"phase 16 {tag} the 7.1 path's kernels at B={n_pk} F={F}, tolerance 0: packet kernel "
-        f"vs plain and vs a slot loop around the element kernel max_abs_err {pk_err} (plain "
-        f"{pk_plain_ms / 1e3:.1f} s, the loop {ms_loop:.1f} ms); lpc (L={L16}) vs plain "
+        f"vs plain max_abs_err {pk_err} (plain {pk_plain_ms / 1e3:.1f} s); lpc (L={L16}) vs plain "
         f"{s_l_err}; raw reads vs plain {s_r_err}; packet ms {summary(t_pk)} | bound "
-        f"{pk_bound[0]:.4f} by {pk_bound[1]}; the packet kernel on the stereo batches, every "
-        f"field == the single-slot walk's: 16-bit ms {summary(t_pk16)} (element "
-        f"{statistics.median(t_el):.3f}), 24-bit ms {summary(t_pkh)} (element "
-        f"{statistics.median(t_hel):.3f}); lpc taps 9 ms "
+        f"{pk_bound[0]:.4f} by {pk_bound[1]} | {clk_pk[0]:.1f} ns, {clk_pk[1]:.0f} cycles a row "
+        f"at {clk_pk[2]:.0f} MHz; lpc taps 9 ms "
         f"{summary(t_slpc)} | plain {s_lpc_plain:.1f} | bound {s_lpc_bound[0]:.4f} by "
         f"{s_lpc_bound[1]}; the 8 raw reads ({n_readers} with active lanes) ms {summary(t_srr)} "
         f"| bound {s_rr_bound[0]:.4f} by {s_rr_bound[1]}"
@@ -1297,6 +1357,8 @@ def main() -> int:
     del want_e
     de_err = max(de_err, round_trip, cursor, de_full)
     t_de = cuda_times(lambda: walk_kernel.dense_entropy(*args_e, kb=cfg.kb, F=F, passes=2))
+    clk_de = walk_clock(lambda: walk_kernel.dense_entropy(*args_e, kb=cfg.kb, F=F, passes=2),
+                        rows_st, statistics.median(t_de))
     de_bound = bound(
         float((counts_e[0] + counts_e[1]).sum()) / 8 + 4 * B2 * 9
         + 4 * 2 * walk_kernel.f_pad(F) * B2 + 4 * 2 * B2,
@@ -1304,8 +1366,11 @@ def main() -> int:
     )
     # On the packets themselves: the element kernel's parse gives the start
     # cursors (16-bit, no shift region: the entropy data starts where the
-    # predictor headers end) and the two pbFactor fields are read here.
-    rows_k, bp_k, err_k, meta_k = walk_kernel.dense_element(*e_args2, **element_kw(cfg))
+    # predictor headers end) and the two pbFactor fields are read here.  This
+    # probe is the element kernel's path since the decode path left it: its
+    # launches are counted from here to the walk below.
+    port.reset_launch_counts()
+    rows_k, bp_k, err_k, meta_k = walk_kernel.dense_element(*e_args2, **el_kw)
     from saprobe_alac_tpu_torch.ops.streambits import vread
 
     partial16 = vread(words2, torch.full((B2,), 19, device=dev), 4) >> 3
@@ -1318,6 +1383,9 @@ def main() -> int:
               ((cfg.pb * pbf_u) >> 2).to(i32), one2048 * 17, meta_k[walk_kernel.M_NS].contiguous(),
               sizes2, one2048 * cfg.mb, comp16, ((cfg.pb * pbf_v) >> 2).to(i32))
     rows_p, bp_p, err_p = walk_kernel.dense_entropy(*args_p, kb=cfg.kb, F=F, passes=2)
+    probe_launches = port.launch_counts()
+    if (probe_launches["element"], probe_launches["dense_entropy"]) != (1, 1):
+        raise AssertionError(f"probe on phase 4's packets: launches {probe_launches}")
     on = comp16 == 1
     vs_element = max(
         amax((rows_p - rows_k).abs()[:, :, on]), amax((bp_p - bp_k).abs()[on]),
@@ -1326,6 +1394,16 @@ def main() -> int:
         raise AssertionError(f"dense entropy on phase 4's packets differs from the element "
                              f"kernel by {vs_element} ({int(on.sum())} compressed pair lanes)")
     de_err = max(de_err, vs_element)
+    # The element kernel's launch here against its plain version on the same
+    # inputs (a fault in the shared walk loop would show on both sides of
+    # the comparison above).
+    want_k, el_plain_full = timed(lambda: walk_kernel.dense_element_reference(*e_args2, **el_kw))
+    el_full = element_diff((rows_k, bp_k, err_k, meta_k), want_k, walk_kernel.M_NS)
+    del want_k
+    if el_full != 0:
+        raise AssertionError(f"element kernel differs from its plain version at B={B2} F={F}: "
+                             f"{el_full}")
+    e_err = max(e_err, el_full)
     print(
         f"phase 17 {tag} dense entropy kernel, tolerance 0: vs plain at B={B17} F={F17} (2 "
         f"passes kb 14, 1 pass kb 6; suffix widths 17 and 32, start cursors, truncated, empty, "
@@ -1334,8 +1412,10 @@ def main() -> int:
         f"bytes): every output == the plain version's (plain {de_plain_full / 1e3:.1f} s), "
         f"rows == the residuals encoded, cursor == the encoder's bits, {de_launches} "
         f"launch; on phase 4's packets from the element kernel's start cursors: rows and "
-        f"cursors == the element kernel's on {int(on.sum())} lanes; ms {summary(t_de)} | bound "
-        f"{de_bound[0]:.4f} by {de_bound[1]}"
+        f"cursors == the element kernel's on {int(on.sum())} lanes ({probe_launches['element']} "
+        f"element launch; its rows, cursors, errors and metadata == its plain version's, plain "
+        f"{el_plain_full / 1e3:.1f} s); ms {summary(t_de)} | bound {de_bound[0]:.4f} by "
+        f"{de_bound[1]} | {clk_de[0]:.1f} ns, {clk_de[1]:.0f} cycles a row at {clk_de[2]:.0f} MHz"
     )
 
     kernels = [
@@ -1343,11 +1423,17 @@ def main() -> int:
             "name": "element", "route": "cuda",
             "source": "saprobe_alac_tpu_torch/csrc/element_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:747",
-            "launches": launches["element"], "max_abs_err": e_err,
-            "ms": statistics.median(t_el), "plain_ms": el_plain_ms,
+            # Off the decode path: its launches on phase 17's probe
+            # (the parse that gives dense_entropy its cursors), held against
+            # its plain version there; its time on that batch (phase 5).
+            "launches": probe_launches["element"], "launches_on": "phase 17 probe",
+            "max_abs_err": e_err,
+            "ms": statistics.median(t_el), "plain_ms": el_plain_full,
+            f"plain_ms_B256_F{F3}": el_plain_256,
             "bound_ms": el_bound[0], "bound_by": el_bound[1], "library_ms": None,
-            "ms_hires": statistics.median(t_hel), "plain_ms_hires": h_el_plain_ms,
-            "bound_ms_hires": h_el_bound[0],
+            "ms_hires": statistics.median(t_hel), "bound_ms_hires": h_el_bound[0],
+            "ns_per_row": clk_el[0], "cycles_per_row": clk_el[1], "sm_mhz": clk_el[2],
+            "ptxas": walk_regs.get("element_kernel"),
         },
         {
             "name": "lpc", "route": "cuda",
@@ -1391,13 +1477,17 @@ def main() -> int:
             "source": "saprobe_alac_tpu_torch/csrc/packet_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:747 (the slot loop around it, "
                         "saprobe_alac_tpu/ops/walk.py:1110)",
-            "launches": s_launches["packet"], "max_abs_err": max(p_err, pk_err),
+            "launches": s_launches["packet"], "max_abs_err": max(pw_err, p_err, pk_err),
             "ms": statistics.median(t_pk), "plain_ms": pk_plain_ms,
             "bound_ms": pk_bound[0], "bound_by": pk_bound[1], "library_ms": None,
+            "ns_per_row": clk_pk[0], "cycles_per_row": clk_pk[1], "sm_mhz": clk_pk[2],
+            "ptxas": walk_regs.get("packet_kernel"),
             f"plain_ms_B256_F{F14}": p_plain[0],
-            "element_kernel_slot_loop_ms": ms_loop,
-            "ms_stereo_16bit": statistics.median(t_pk16),
-            "ms_stereo_hires": statistics.median(t_pkh),
+            "launches_stereo_16bit": launches["packet"], "launches_stereo_hires": h_launches["packet"],
+            "ms_stereo_16bit": statistics.median(t_pk16), "plain_ms_stereo_16bit": pk_plain16,
+            "bound_ms_stereo_16bit": pk16_bound[0], "cycles_per_row_stereo_16bit": clk_pk16[1],
+            "ms_stereo_hires": statistics.median(t_pkh), "plain_ms_stereo_hires": pk_plain_h,
+            "bound_ms_stereo_hires": pkh_bound[0], "cycles_per_row_stereo_hires": clk_pkh[1],
             "lpc_ms_L16384": statistics.median(t_slpc), "lpc_plain_ms_L16384": s_lpc_plain,
             "lpc_bound_ms_L16384": s_lpc_bound[0], "lpc_launches": s_launches["lpc"],
             "raw_reads_ms": statistics.median(t_srr), "raw_reads_bound_ms": s_rr_bound[0],
@@ -1411,6 +1501,8 @@ def main() -> int:
             "ms": statistics.median(t_de), "plain_ms": de_plain_full,
             "bound_ms": de_bound[0], "bound_by": de_bound[1], "library_ms": None,
             f"plain_ms_B{B17}_F{F17}": de_plain[0],
+            "ns_per_row": clk_de[0], "cycles_per_row": clk_de[1], "sm_mhz": clk_de[2],
+            "ptxas": walk_regs.get("dense_entropy_kernel"),
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -24,7 +24,6 @@ namespace {
 
 using namespace alac;
 
-constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads) dense_entropy_kernel(
     const int32_t* __restrict__ words, int W, const int32_t* __restrict__ bitpos_in,
@@ -34,7 +33,7 @@ __global__ void __launch_bounds__(kThreads) dense_entropy_kernel(
     const int32_t* __restrict__ act2_in, const int32_t* __restrict__ pb2,
     int32_t* __restrict__ rows, int32_t* __restrict__ bitpos_out,
     int32_t* __restrict__ err_out, int B, int F_pad, int passes, int kb) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const Bits s{words + static_cast<size_t>(b) * W, W};
   const int32_t bitpos = bitpos_in[b];
@@ -45,7 +44,7 @@ __global__ void __launch_bounds__(kThreads) dense_entropy_kernel(
   w.err = ERR_NONE;
   w.off = bitpos;
   w.start(act0 && ns > 0, mb[b]);
-  BitBuffer buf(s, w.off);
+  BitStream buf(s);
   int32_t pbl = pb[b];
   for (int pass = 0; pass < passes; ++pass) {
     if (pass == 1) {

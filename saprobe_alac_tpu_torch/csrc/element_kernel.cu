@@ -9,20 +9,17 @@
 // emission schedule of the TPU kernel, zeros where a lane has nothing to
 // emit — so the LPC kernel never reads an unwritten row.
 //
-// What bounds it on an H100: the walk is bit-serial within a packet (each
-// codeword's length depends on its value), so the kernel is latency-bound:
-// B=2048 packets are 2048 threads, 16 blocks of 128, one warp per scheduler
-// on 16 SMs, each thread running a dependent chain of integer ops per
-// sample.  Measured (H100 80GB HBM3, 700 W, F=4096 stereo): about 3.9 ms at
-// B=256 and at B=2048 alike, some 800 cycles per decoded row.  Memory
-// traffic is small (the packet bits, and one int32 row write per sample,
-// coalesced across the warp because at step t every thread writes row t).
-// The design keeps all state in registers and drops the TPU's workarounds
-// for a vector unit without per-lane gathers: no one-hot window fetch, no L1
-// superblocks, no staging rings.  Each thread reads its own row of the
-// (B, W) row-major word array through a three-word register bit buffer, so
-// a decoded row costs about one load per 32 bits consumed (this took 6% off
-// direct two-word reads: the loads were not the bound).
+// The decode path no longer calls it: the packet kernel walks every element
+// of a packet, one element included, and the tests hold its elements against
+// this kernel's.  What bounds it on an H100 is what bounds the packet
+// kernel (element_walk.cuh `walk_pass`): the walk is bit-serial within a
+// packet, so B=2048 packets are 2048 threads, one warp to a scheduler, each
+// running a dependent chain of integer operations per decoded row.
+// Memory traffic is small (the packet bits, and one int32 row write per
+// sample, coalesced across the warp because at step t every thread writes
+// row t).  All state is in registers, with none of the TPU's workarounds for
+// a vector unit without per-lane gathers (one-hot window fetch, L1
+// superblocks, staging rings).
 
 #include <cuda_runtime.h>
 
@@ -34,7 +31,6 @@ namespace {
 
 using namespace alac;
 
-constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads) element_kernel(
     const int32_t* __restrict__ words, int W, const int32_t* __restrict__ bitpos_in,
@@ -43,7 +39,7 @@ __global__ void __launch_bounds__(kThreads) element_kernel(
     int32_t* __restrict__ rows, int32_t* __restrict__ bitpos_out,
     int32_t* __restrict__ err_out, int32_t* __restrict__ meta, int B, int F,
     int F_pad, int passes, int kb, int depth, int pb_cfg, int mb_cfg) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const Bits s{words + static_cast<size_t>(b) * W, W};
   const int32_t bitpos = bitpos_in[b];

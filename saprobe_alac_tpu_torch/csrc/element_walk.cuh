@@ -4,7 +4,9 @@
 // element_kernel.cu (one element per lane), packet_kernel.cu (every element
 // of a packet per lane) and dense_entropy_kernel.cu (the walk alone, no
 // parse) include this header, so the three run one parse and one walk loop.
-// Everything is per thread and in registers: no shared memory, no barriers.
+// Everything is per thread and in registers: no shared memory, no barriers,
+// no warp shuffles, so tests/test_torch_csrc_host.py can run a block's
+// threads one after another on the host.
 // Parity: decoder.go:210-265/348-460 (headers), golomb.go:112-253 (entropy),
 // bitbuffer.go:28-32 (zero reads past the end).
 #pragma once
@@ -32,6 +34,12 @@ enum : int {
   M_COEFS_U = 18, M_COEFS_V = 50,
 };
 
+// Threads a block of the walk kernels, one thread a lane: at B=2048 blocks
+// of 32 put the batch on 64 SMs, one warp to an SM.  On the H100 blocks of
+// 32, 64 and 128 ran within 6% of each other and the fastest changed from
+// run to run (PERF.md); 32 spreads the batch widest.
+constexpr int kThreads = 32;
+
 // One packet's big-endian words; words outside [0, W) read as zero
 // (bitbuffer.go:28-32).
 struct Bits {
@@ -39,7 +47,8 @@ struct Bits {
   int32_t W;
 
   __device__ __forceinline__ uint32_t word(int32_t i) const {
-    return (i >= 0 && i < W) ? static_cast<uint32_t>(__ldg(row + i)) : 0u;
+    return static_cast<uint32_t>(i) < static_cast<uint32_t>(W) ? static_cast<uint32_t>(__ldg(row + i))
+                                                               : 0u;
   }
   // The 32 stream bits starting at bit position pos.
   __device__ __forceinline__ int32_t win32(int32_t pos) const {
@@ -54,36 +63,110 @@ struct Bits {
   }
 };
 
-// The walk's bit buffer: three consecutive words of the packet held in
-// registers.  The walk's reads move forward, so a read one word further on
-// costs one load and a read in the same word costs none; any other jump
-// (the V pass rewind of escape lanes, long raw strides) reloads all three.
-struct BitBuffer {
-  const Bits& s;
-  int32_t base;  // word index of w0
-  uint32_t w0, w1, w2;
+// Go's clamped uint32 shifts as one funnel shift each.  The clamping forms
+// __funnelshift_lc / __funnelshift_rc shift by min(count, 32) with an
+// unsigned count, so a count of 32 or more, or a negative one (a huge
+// unsigned), gives 0: exactly shl32 / ushr32 of alac_int.cuh, in one SHF
+// instead of a compare, a shift and a select.
+__device__ __forceinline__ uint32_t shl32f(uint32_t x, int32_t n) {
+  return __funnelshift_lc(0u, x, static_cast<uint32_t>(n));
+}
+__device__ __forceinline__ uint32_t ushr32f(uint32_t x, int32_t n) {
+  return __funnelshift_rc(x, 0u, static_cast<uint32_t>(n));
+}
 
-  __device__ __forceinline__ BitBuffer(const Bits& bits, int32_t pos) : s(bits) { reload(pos >> 5); }
-  __device__ __forceinline__ void reload(int32_t wi) {
-    base = wi;
-    w0 = s.word(wi);
-    w1 = s.word(wi + 1);
-    w2 = s.word(wi + 2);
+// The index of the highest set bit of x (x > 0): floor(log2(x)), one
+// instruction on the card.
+__device__ __forceinline__ int32_t msb(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  int32_t r;
+  asm("bfind.u32 %0, %1;" : "=r"(r) : "r"(x));
+  return r;
+#else
+  return 31 - __clz(static_cast<int32_t>(x));
+#endif
+}
+
+// Rows a walk pass decodes before it stores them (walk_pass): on the H100
+// pairs ran a little faster than single rows, groups of 4 and 8 no faster.
+constexpr int kRowGroup = 2;
+// Words ahead of the cursor the stream prefetches (BitStream::prefetch): 16,
+// 32 and 64 ran alike on the H100, 128 a little slower.
+constexpr int kPrefetchWords = 32;
+
+// The walk's bit stream: the cursor at bit r of w0, the next two words in
+// w1 and w2, and the word after them, w3, loaded one row ahead.  A row's
+// window is one funnel shift of (w0, w1).  A step moves r and, where the
+// cursor crosses into w1, shifts the words down by selects, not a branch:
+// at B=2048 each thread walks its own packet and some lane of a warp
+// crosses a word on nearly every row, so a branch would run on every row
+// for the whole warp.  Every step loads the word at ``nxt`` (zero outside
+// the row, bitbuffer.go:28-32), which the next step reads, and prefetches
+// the line kPrefetchWords words on (some 100 rows of music) into L1, so the
+// load hits L1 and the chain never waits on L2 or memory (on the H100 the
+// largest single step of the redesign; a queue of 16-byte loads held in
+// registers cost more instructions a row than it saved).  A jump the steps
+// do not cover (a pass start,
+// a long zero-run code, an escape suffix of unusual width) reloads the
+// words at the new cursor.
+struct BitStream {
+  Bits s;
+  int32_t nxt;  // word index of w3
+  int32_t r;  // bit of w0 at the cursor, 0..31
+  uint32_t w0, w1, w2, w3;
+  int32_t pos;  // the stream's cursor, kept at seeks and pass ends
+  bool ready;
+
+  __device__ __forceinline__ explicit BitStream(const Bits& bits)
+      : s(bits), nxt(0), r(0), w0(0), w1(0), w2(0), w3(0), pos(0), ready(false) {}
+
+  // The stream at bit position p (any int).
+  __device__ void seek(int32_t p) {
+    const int32_t base = p >> 5;
+    r = p & 31;
+    w0 = s.word(base);
+    w1 = s.word(base + 1);
+    w2 = s.word(base + 2);
+    nxt = base + 3;
+    w3 = s.word(nxt);
+    pos = p;
+    ready = true;
   }
-  // The 32 stream bits starting at bit position pos.
-  __device__ __forceinline__ int32_t win32(int32_t pos) {
-    const int32_t wi = pos >> 5;
-    const int32_t d = wsub(wi, base);
-    if (d == 1) {
-      w0 = w1;
-      w1 = w2;
-      w2 = s.word(wi + 2);
-      base = wi;
-    } else if (d != 0) {
-      reload(wi);
+  // The 32 stream bits at the cursor: (w0:w1) << r, high word.
+  __device__ __forceinline__ uint32_t window() const { return __funnelshift_l(w1, w0, r); }
+  // Move the cursor n bits on, 0 <= n <= 32: r + n < 64, so at most one
+  // crossing.
+  __device__ __forceinline__ void step(int32_t n) {
+    r += n;
+    const bool c = r >= 32;
+    r = c ? r - 32 : r;
+    w0 = c ? w1 : w0;
+    w1 = c ? w2 : w1;
+    w2 = c ? w3 : w2;
+    nxt += c ? 1 : 0;
+    w3 = s.word(nxt);
+    prefetch(nxt + kPrefetchWords);
+  }
+  // Ask L1 for the line holding word i (clamped into the row) ahead of its
+  // load: the load of w3 above is a row ahead only, and the first touch of
+  // each 32-byte sector of a packet would otherwise stall the chain on L2.
+  __device__ __forceinline__ void prefetch(int32_t i) const {
+#ifdef __CUDA_ARCH__
+    if (s.W > 0) {
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(s.row + min(max(i, 0), s.W - 1)));
     }
-    const int32_t r = pos & 31;
-    return static_cast<int32_t>((w0 << r) | ((w1 >> 1) >> (31 - r)));
+#endif
+  }
+  // Move the cursor d bits on, to position ``to``: steps for 0 <= d <= 64,
+  // a reload for any other jump.
+  __device__ __forceinline__ void advance(int32_t d, int32_t to) {
+    if (d >= 0 && d <= 64) {
+      const int32_t a = d < 32 ? d : 32;
+      step(a);
+      step(d - a);
+    } else {
+      seek(to);
+    }
   }
 };
 
@@ -221,106 +304,169 @@ struct Walk {
   }
 };
 
+// A raw (escape) lane's pass: field t sits at off + t * rstep, so the rows
+// carry no state from one to the next and their loads overlap.  Row t <
+// n goes to out[t * stride], where n is what the codeword loop's schedule
+// gives: every remaining field (ns - count of them), at least the row on
+// which the lane was active, at most F_pad.
+__device__ __forceinline__ void raw_pass(
+    const Bits& s, Walk& w, const WalkLane& ln, int32_t* out, size_t stride, int F_pad) {
+  int32_t n = 0;
+  if (w.act) {
+    n = w.err == ERR_NONE ? wsub(ln.ns, w.count) : 1;
+    n = min(max(n, 1), F_pad);
+  }
+  const int32_t sh = 32 - ln.rawcb;  // rawcb is 1..32 (esc_cb clamped to 1, depth <= 32)
+#pragma unroll 4
+  for (int t = 0; t < F_pad; ++t) {
+    const int32_t p = wadd(w.off, wmul(t, ln.rstep));
+    out[static_cast<size_t>(t) * stride] = t < n ? (s.win32(p) >> sh) : 0;
+  }
+  w.off = wadd(w.off, wmul(n, ln.rstep));
+  w.count = wadd(w.count, n);
+  w.act = w.act && w.count < ln.ns && w.err == ERR_NONE;
+}
+
+// A codeword's value, decoded: the signed mapping (golomb.go:206-212) and
+// the adaptive mean (:215-218), both wrapping 32-bit, then the zero-run
+// entry (:223-246) where the new mean is small.  Returns the row's residual.
+__device__ __forceinline__ int32_t finish_codeword(
+    BitStream& buf, Walk& w, const WalkLane& ln, uint32_t pu, int32_t value) {
+  const int32_t nd = wadd(value, w.zmode);
+  const int32_t emit = wmul(static_cast<int32_t>(static_cast<uint32_t>(wadd(nd, 1)) >> 1),
+                            1 - 2 * (nd & 1));
+  ++w.count;
+  uint32_t mean_n = pu * static_cast<uint32_t>(nd) + static_cast<uint32_t>(w.mean) -
+                    ((pu * static_cast<uint32_t>(w.mean)) >> 9);
+  if (static_cast<uint32_t>(value) > 0xFFFFu) mean_n = 0xFFFFu;
+  w.mean = static_cast<int32_t>(mean_n);
+  w.zmode = 0;
+  // Zero-run mode: (mean << 2) < 512 as uint32 (a mean of 2^30 or more
+  // enters too, as in Go).
+  if ((mean_n << 2) < 512u && w.count < ln.ns) {
+    int32_t k32 = __clz(w.mean) - 24 + static_cast<int32_t>((mean_n + 16u) >> 6);
+    if (k32 < 0) k32 = 0;
+    const int32_t mz = static_cast<int32_t>((shl32f(1u, k32) - 1u) & ln.wb_mask);
+    const uint32_t zwin = buf.window();
+    const int32_t zpre = __clz(static_cast<int32_t>(~zwin));
+    int32_t zrun, zbits;
+    if (zpre >= 9) {
+      zrun = static_cast<int32_t>((zwin << 9) >> 16);
+      zbits = 25;
+    } else {
+      // k32 may be anything from 0 up: the clamped shift gives 0 at 32 - k32
+      // <= 0 as Go's does.
+      const int32_t zv = static_cast<int32_t>(ushr32f(zwin << (zpre + 1), 32 - k32));
+      const bool zvbig = zv >= 2;
+      zrun = zvbig ? wadd(wmul(zpre, mz), zv - 1) : wmul(zpre, mz);
+      zbits = zpre + 1 + (zvbig ? k32 : k32 - 1);
+    }
+    if (wadd(w.count, zrun) > ln.ns) {
+      w.err = ERR_SAMPLES;
+      w.act = false;
+    } else {
+      w.zrem = zrun;
+      const int32_t off_z = wadd(w.off, zbits);
+      buf.advance(zbits, off_z);
+      w.off = off_z;
+      w.zmode = zrun >= 65535 ? 0 : 1;
+      w.mean = 0;
+    }
+  }
+  return emit;
+}
+
+// A row off the common path: idle, one zero of a pending run drained, the
+// overrun guard (golomb.go:168-170) tripped, or an escape codeword (a
+// 9-one prefix, then max_size raw bits).
+__device__ __forceinline__ int32_t rare_row(BitStream& buf, Walk& w, const WalkLane& ln, uint32_t pu) {
+  int32_t emit = 0;
+  if (!w.act) return 0;
+  if (w.zrem > 0) {
+    --w.zrem;
+    ++w.count;
+  } else if (w.zrem == 0) {
+    if (w.off >= ln.sz || w.off < 0) {
+      w.err = ERR_OVERRUN;
+      w.act = false;
+    } else {  // a prefix of nine ones: the common row took every other codeword
+      buf.step(9);
+      const int32_t value = static_cast<int32_t>(
+          ushr32f(buf.window(), 32 - (ln.max_size > 1 ? ln.max_size : 1)));
+      const int32_t off_new = wadd(w.off, 9 + ln.max_size);
+      buf.advance(ln.max_size, off_new);
+      w.off = off_new;
+      emit = finish_codeword(buf, w, ln, pu, value);
+    }
+  }
+  w.act = w.act && w.count < ln.ns && w.err == ERR_NONE;
+  return emit;
+}
+
 // One pass of the walk (golomb.go:112-253): row t of the pass goes to
 // out[t * stride] for every t < F_pad, the dense emission schedule of the TPU
 // kernels: a lane decodes one codeword, drains one zero of a pending run,
-// reads one raw field, or idles and emits 0.
+// or idles and emits 0 (raw lanes take raw_pass).
+//
+// The loop is latency-bound: one warp to a scheduler at B=2048, and each
+// row's codeword starts where the last one ended (off -> window -> prefix
+// -> nbits -> off) with its k from the mean the last one left (mean -> k ->
+// value -> mean).  The GPU pays for every instruction of a row in turn, and
+// for every branch a warp's lanes split on, so the common row (active, no
+// run pending, the cursor inside the packet, a prefix under 9) is one
+// straight block: the window is one funnel shift, k one bfind, the word
+// crossing is selects, the Go clamps are dropped where the counts are
+// provably in range, and only the (rare) zero-run entry branches.  Every
+// other row takes rare_row's branch.
 __device__ __forceinline__ void walk_pass(
-    BitBuffer& buf, Walk& w, const WalkLane& ln, int32_t pbl, int32_t* out, size_t stride,
+    BitStream& buf, Walk& w, const WalkLane& ln, int32_t pbl, int32_t* out, size_t stride,
     int F_pad) {
-  bool act = w.act;
-  int32_t off = w.off, err = w.err, count = w.count, mean = w.mean, zmode = w.zmode,
-          zrem = w.zrem;
-  const int32_t ns = ln.ns, sz = ln.sz, kb = ln.kb, max_size = ln.max_size;
-  for (int t = 0; t < F_pad; ++t) {
-    int32_t emit = 0;
-    if (act) {
-      if (ln.raw) {
-        emit = sshr32(buf.win32(off), 32 - ln.rawcb);
-        off += ln.rstep;
-        ++count;
-      } else if (zrem > 0) {  // drain one zero of a pending run
-        --zrem;
-        ++count;
-      } else if (zrem == 0) {
-        if (off >= sz || off < 0) {  // overrun guard (golomb.go:168-170)
-          err = ERR_OVERRUN;
-          act = false;
-        } else {
-          const int32_t k = min(lg3a(static_cast<int32_t>(static_cast<uint32_t>(mean) >> 9)), kb);
-          const int32_t m = static_cast<int32_t>(shl32(1u, k) - 1u);
-          const int32_t win = buf.win32(off);
-          const int32_t pre = clz32(~win);
-          int32_t value, nbits;
-          if (pre >= 9) {  // escape: raw max_size bits
-            value = static_cast<int32_t>(ushr32(
-                static_cast<uint32_t>(buf.win32(off + 9)), 32 - (max_size > 1 ? max_size : 1)));
-            nbits = 9 + max_size;
-          } else if (k != 1) {
-            const int32_t v = static_cast<int32_t>(
-                ushr32(shl32(static_cast<uint32_t>(win), pre + 1), 32 - k));
-            const bool vbig = v >= 2;
-            value = vbig ? wadd(wmul(pre, m), v - 1) : wmul(pre, m);
-            nbits = pre + 1 + (vbig ? k : k - 1);
-          } else {
-            value = pre;
-            nbits = pre + 1;
-          }
-          // Signed mapping (golomb.go:206-212), wrapping 32-bit.
-          const int32_t nd = wadd(value, zmode);
-          emit = wmul(static_cast<int32_t>(static_cast<uint32_t>(wadd(nd, 1)) >> 1),
-                      1 - 2 * (nd & 1));
-          ++count;
-          off = wadd(off, nbits);
-          // Adaptive mean (golomb.go:215-218), uint32 wrap.
-          const uint32_t pu = static_cast<uint32_t>(pbl);
-          uint32_t mean_n = pu * static_cast<uint32_t>(nd) + static_cast<uint32_t>(mean) -
-                            ((pu * static_cast<uint32_t>(mean)) >> 9);
-          if (static_cast<uint32_t>(value) > 0xFFFFu) mean_n = 0xFFFFu;
-          mean = static_cast<int32_t>(mean_n);
-          zmode = 0;
-          // Zero-run mode (golomb.go:223-246): (mean << 2) < 512 unsigned.
-          if (shl32(static_cast<uint32_t>(mean), 2) < 512u && count < ns) {
-            int32_t k32 = clz32(mean) - 24 +
-                          static_cast<int32_t>((static_cast<uint32_t>(mean) + 16u) >> 6);
-            if (k32 < 0) k32 = 0;
-            const int32_t mz = static_cast<int32_t>((shl32(1u, k32) - 1u) & ln.wb_mask);
-            const int32_t zwin = buf.win32(off);
-            const int32_t zpre = clz32(~zwin);
-            int32_t zrun, zbits;
-            if (zpre >= 9) {
-              zrun = static_cast<int32_t>(ushr32(shl32(static_cast<uint32_t>(zwin), 9), 16));
-              zbits = 25;
-            } else {
-              const int32_t zv = k32 == 0 ? 0
-                  : static_cast<int32_t>(ushr32(shl32(static_cast<uint32_t>(zwin), zpre + 1), 32 - k32));
-              const bool zvbig = zv >= 2;
-              zrun = zvbig ? wadd(wmul(zpre, mz), zv - 1) : wmul(zpre, mz);
-              zbits = zpre + 1 + (zvbig ? k32 : k32 - 1);
-            }
-            if (wadd(count, zrun) > ns) {
-              err = ERR_SAMPLES;
-              act = false;
-            } else {
-              zrem = zrun;
-              off = wadd(off, zbits);
-              zmode = zrun >= 65535 ? 0 : 1;
-              mean = 0;
-            }
-          }
-        }
-      }
-      act = act && count < ns && err == ERR_NONE;
-    }
-    out[static_cast<size_t>(t) * stride] = emit;
+  if (ln.raw) {
+    raw_pass(buf.s, w, ln, out, stride, F_pad);
+    return;
   }
-  w.act = act;
-  w.off = off;
-  w.err = err;
-  w.count = count;
-  w.mean = mean;
-  w.zmode = zmode;
-  w.zrem = zrem;
+  const bool live = w.act;
+  if (live && (!buf.ready || buf.pos != w.off)) buf.seek(w.off);
+  const uint32_t pu = static_cast<uint32_t>(pbl);
+  // The guard 0 <= off < sz as one unsigned compare (none passes for sz <= 0).
+  const uint32_t szu = static_cast<uint32_t>(ln.sz > 0 ? ln.sz : 0);
+  // One row of the schedule: its residual.
+  auto row = [&]() -> int32_t {
+    const uint32_t win = buf.window();
+    const int32_t pre = __clz(static_cast<int32_t>(~win));
+    if (!(w.act && w.zrem == 0 && pre < 9 && static_cast<uint32_t>(w.off) < szu)) {
+      return rare_row(buf, w, ln, pu);
+    }
+    // k = min(lg3a(mean >> 9), kb): (mean >> 9) + 3 is at most 2^23 + 2
+    // (unsigned shift of a uint32), so k <= 23, and k >= 1 unless kb < 1.
+    const int32_t k = min(msb((static_cast<uint32_t>(w.mean) >> 9) + 3u), ln.kb);
+    // pre + 1 <= 9: a plain shift.  32 - k is 9..32 (32 when kb is 0,
+    // where Go's shift gives 0), and shl32(1, k) keeps Go's clamp for any
+    // kb: both one funnel shift.
+    const uint32_t v = ushr32f(win << (pre + 1), 32 - k);
+    const int32_t m = static_cast<int32_t>(shl32f(1u, k) - 1u);
+    const bool vbig = v >= 2u;
+    const int32_t value = vbig ? wadd(wmul(pre, m), static_cast<int32_t>(v) - 1) : wmul(pre, m);
+    // pre + 1 + (vbig ? k : k - 1): 0..32, since 0 <= k <= 23 (kb is the
+    // cookie's byte, 0..255; the wrappers raise outside it), so one step
+    // moves the stream.
+    const int32_t nbits = pre + k + (vbig ? 1 : 0);
+    w.off = wadd(w.off, nbits);
+    buf.step(nbits);
+    const int32_t emit = finish_codeword(buf, w, ln, pu, value);
+    w.act = w.act && w.count < ln.ns && w.err == ERR_NONE;
+    return emit;
+  };
+  // Rows in groups of kRowGroup (F_pad is a multiple of 16), their stores
+  // after the group.
+  for (int t = 0; t < F_pad; t += kRowGroup) {
+    int32_t e[kRowGroup];
+#pragma unroll
+    for (int j = 0; j < kRowGroup; ++j) e[j] = row();
+#pragma unroll
+    for (int j = 0; j < kRowGroup; ++j) out[static_cast<size_t>(t + j) * stride] = e[j];
+  }
+  if (live) buf.pos = w.off;
 }
 
 // The walk of one parsed element: the U channel into rows out[0 .. F_pad)
@@ -343,7 +489,7 @@ __device__ __forceinline__ ElementEnd walk_element(
   w.err = e.err;
   w.off = e.is_escape ? e.esc_base : e.p_ent;
   w.start((e.is_comp || e.is_escape) && e.ns > 0, mb_cfg);
-  BitBuffer buf(s, w.off);
+  BitStream buf(s);
   int32_t pbl = sshr32(pb_cfg * e.hu.pbf, 2);
   for (int pass = 0; pass < passes; ++pass) {
     if (pass == 1) {

@@ -17,10 +17,10 @@
 // of every plane is written.
 //
 // Same contract as the slot loop, field for field (ops/walk.py
-// `walk_batch(fused=False)` holds it to the TPU package in the tests).  It
-// is bound as the element kernel is: a dependent chain per decoded row, one
-// thread per packet, so a C-channel packet takes about C/2 times a stereo
-// packet's time.
+// `walk_batch`, the decode path's walk for every C = 1..8, holds it to the
+// TPU package in the tests).  It is latency-bound: a dependent chain per
+// decoded row (element_walk.cuh `walk_pass`), one thread per packet, so a
+// C-channel packet takes about C/2 times a stereo packet's time.
 
 #include <cuda_runtime.h>
 
@@ -32,7 +32,6 @@ namespace {
 
 using namespace alac;
 
-constexpr int kThreads = 128;
 constexpr int kExtraSlots = 4;  // elements beyond the channel-filling ones
 // Planes of the per-channel metadata output (14, B, C), in the order of
 // ops/walk.py WalkResult.
@@ -47,7 +46,7 @@ __global__ void __launch_bounds__(kThreads) packet_kernel(
     int32_t* __restrict__ err_out, int32_t* __restrict__ ns_out, int32_t* __restrict__ chan_meta,
     int32_t* __restrict__ coefs, int B, int C, int F, int F_pad, int kb, int depth, int pb_cfg,
     int mb_cfg) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const Bits s{words + static_cast<size_t>(b) * W, W};
   const int32_t sz = size_bits[b];
@@ -87,10 +86,11 @@ __global__ void __launch_bounds__(kThreads) packet_kernel(
       const int32_t out_u = offsets[min(max(chan, 0), C - 1)];
       for (int v = 0; v < (e.is_cpe ? 2 : 1); ++v) {
         int32_t* m = my_meta + chan + v;
-        const PredHeader& h = v ? e.hv : e.hu;
-        m[K_ORDER * field] = e.is_comp ? h.num : 0;
-        m[K_MODE * field] = e.is_comp ? h.mode : 0;
-        m[K_DEN * field] = e.is_comp ? h.den : 0;
+        // Field by field: a reference to either header would put both in
+        // local memory.
+        m[K_ORDER * field] = e.is_comp ? (v ? e.hv.num : e.hu.num) : 0;
+        m[K_MODE * field] = e.is_comp ? (v ? e.hv.mode : e.hu.mode) : 0;
+        m[K_DEN * field] = e.is_comp ? (v ? e.hv.den : e.hu.den) : 0;
         m[K_CB * field] = e.is_comp ? e.cb_comp : e.esc_cb;
         m[K_BS * field] = e.is_comp ? e.bsf : 0;
         m[K_ESC * field] = e.is_escape;

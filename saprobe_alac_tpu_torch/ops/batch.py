@@ -1,15 +1,13 @@
 """Batch decode orchestration: host packing -> device phases -> host bytes.
 
 Counterpart of saprobe_alac_tpu/ops/batch.py `JaxBatchDecoder`: 16-, 20-,
-24- and 32-bit streams of C = 1..8 channels in every element layout.  Mono
-and stereo batches take the single-slot walk (one element kernel launch; a
-packet of another layout goes to the host), more channels the packet walk
-(one packet kernel launch for every element of every packet), as the JAX
-package picks between its two layouts.  A CUDA device (the default) launches
-the kernels, the CPU runs their plain versions, and nothing moves between
-the two by itself.  Packets that trip
-device-side validation (any nonzero ERR_* code) are decoded by the exact
-host path, the JAX package's error contract (batch.py:32-51, 380-390).
+24- and 32-bit streams of C = 1..8 channels in every element layout.  Every
+batch takes the packet walk (one packet kernel launch for every element of
+every packet, SCE+SCE stereo and DSE/FIL elements included).  A CUDA device
+(the default) launches the kernels, the CPU runs their plain versions, and
+nothing moves between the two by itself.  Packets that trip device-side
+validation (any nonzero ERR_* code) are decoded by the exact host path, the
+JAX package's error contract (batch.py:32-51, 380-390).
 Staging and the host path run on the repo's C++ host core (``..native``); a
 packet the core rejects raises the class the scalar oracle raises for it.
 """
@@ -105,7 +103,6 @@ class TorchBatchDecoder:
         cfg = self.config
         words, sizes = self._stage(packets)
         F, C, depth = cfg.frame_length, cfg.num_channels, cfg.bit_depth
-        # walk_batch picks the layout from C.
         w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
         L = words.shape[0] * C
         mix = lpc_batch(

@@ -1,11 +1,11 @@
-"""Element kernel: SCE/CPE header + coefficient parse and the two-pass
-adaptive Golomb-Rice walk, one packet per lane.
+"""The walk kernels: the element walk, the packet walk and the entropy walk.
 
-Counterpart of saprobe_alac_tpu/ops/walk_kernel.py `dense_element_pallas`
-(`_element_kernel`).  `dense_element` launches the CUDA kernel
-(csrc/element_kernel.cu) for CUDA tensors and runs the plain PyTorch version,
-`dense_element_reference`, for CPU tensors.  Both return the quantities the
-Pallas kernel returns, without its TPU tiling:
+`dense_element` is the counterpart of saprobe_alac_tpu/ops/walk_kernel.py
+`dense_element_pallas` (`_element_kernel`): SCE/CPE header + coefficient
+parse and the two-pass adaptive Golomb-Rice walk, one packet per lane.  It
+launches the CUDA kernel (csrc/element_kernel.cu) for CUDA tensors and runs
+the plain PyTorch version, `dense_element_reference`, for CPU tensors.  Both
+return the quantities the Pallas kernel returns, without its TPU tiling:
 
     rows (passes, F_pad, B)  residual row t of pass p (U, then V) per lane;
                              the dense emission schedule writes every row,
@@ -17,20 +17,26 @@ Pallas kernel returns, without its TPU tiling:
 
 F_pad is F rounded up to 16.  All int32.  Parity: golomb.go:112-253,
 decoder.go:210-265/348-460, bitbuffer.go:28-32 (zero reads past the end).
+The decode path does not call it: the packet walk below does its work there,
+and the tests hold the packet walk's elements against it.
 
-Two more kernels share that walk (csrc/element_walk.cuh):
+Two more kernels share that parse and walk (csrc/element_walk.cuh):
 
 `dense_packet` (csrc/packet_kernel.cu; plain `dense_packet_reference`) is the
-multi-element entry: one launch walks every element of every packet, where
-the JAX package loops over element slots around `dense_element_pallas`
-(saprobe_alac_tpu/ops/walk.py `slot_body_dense`).  It returns rows
-(C, F_pad, B), one plane per bitstream channel, err (B,), ns (B,), the
-per-channel metadata (len(PACKET_FIELDS), B, C) and coefs (B, C, 32).
+decode path's walk for every C = 1..8: one launch walks every element of
+every packet, where the JAX package loops over element slots around
+`dense_element_pallas` (saprobe_alac_tpu/ops/walk.py `slot_body_dense`).  It
+returns rows (C, F_pad, B), one plane per bitstream channel, err (B,), ns
+(B,), the per-channel metadata (len(PACKET_FIELDS), B, C) and coefs
+(B, C, 32).
 
 `dense_entropy` (csrc/dense_entropy_kernel.cu; plain
 `dense_entropy_reference`) is the counterpart of `dense_entropy_pallas`
 (`_dense_kernel`): the walk alone from given cursors with per-lane tuning,
 no parse.
+
+The three kernels run one thread a lane, 32 a block (element_walk.cuh
+`kThreads`).
 """
 
 from __future__ import annotations
@@ -89,6 +95,14 @@ def _check_lanes(kernel, words, named):
             raise ValueError(f"{kernel} {name}: want shape ({B},), got {tuple(t.shape)}")
 
 
+def _check_kb(kb):
+    """kb is the cookie's byte (config.go:27-38): the walk loop takes one
+    cursor step a codeword, which holds for 0 <= kb (element_walk.cuh
+    `walk_pass`)."""
+    if not 0 <= kb <= 255:
+        raise ValueError(f"kb must be 0..255, got {kb}")
+
+
 def dense_element(
     words, bitpos, pact, size_bits, ns_in, allow_cpe,
     *, kb, F, depth, pb_cfg, mb_cfg, passes,
@@ -98,6 +112,7 @@ def dense_element(
     CUDA tensors launch the kernel, CPU tensors run the plain version."""
     args = (words, bitpos, pact, size_bits, ns_in, allow_cpe)
     kw = dict(kb=kb, F=F, depth=depth, pb_cfg=pb_cfg, mb_cfg=mb_cfg, passes=passes)
+    _check_kb(kb)
     if words.device.type == "cpu":
         return dense_element_reference(*args, **kw)
     if words.device.type != "cuda":
@@ -374,6 +389,7 @@ def dense_entropy(
     tensors launch the kernel, CPU tensors run the plain version."""
     if passes not in (1, 2):
         raise ValueError(f"passes must be 1 or 2, got {passes}")
+    _check_kb(kb)
     act2 = torch.zeros_like(act) if act2 is None else act2
     pb2 = torch.zeros_like(pb) if pb2 is None else pb2
     lane = (bitpos, act, pb, max_size, ns, size_bits, mb, act2, pb2)
@@ -434,6 +450,7 @@ def dense_packet(words, size_bits, offsets, *, kb, F, C, depth, pb_cfg, mb_cfg):
     element reached are all-zero with ``filled`` 0.  CUDA tensors launch the
     kernel, CPU tensors run the plain version."""
     kw = dict(kb=kb, F=F, C=C, depth=depth, pb_cfg=pb_cfg, mb_cfg=mb_cfg)
+    _check_kb(kb)
     if words.device.type == "cpu":
         return dense_packet_reference(words, size_bits, offsets, **kw)
     if words.device.type != "cuda":
@@ -467,12 +484,9 @@ def dense_packet(words, size_bits, offsets, *, kb, F, C, depth, pb_cfg, mb_cfg):
     return rows, err, ns, meta, coefs
 
 
-def dense_packet_reference(words, size_bits, offsets, *, kb, F, C, depth, pb_cfg, mb_cfg,
-                           element=None):
+def dense_packet_reference(words, size_bits, offsets, *, kb, F, C, depth, pb_cfg, mb_cfg):
     """Plain PyTorch `dense_packet`: a slot loop over
-    `dense_element_reference` (or ``element``, a function of its signature:
-    with `dense_element` on CUDA tensors the loop runs around the element
-    kernel), every lane at its own element each slot, as
+    `dense_element_reference`, every lane at its own element each slot, as
     the JAX package's `slot_body_dense` (walk.py:799-1073) and the commit
     after its loop (:1150-1159): the element's rows go to plane ``chan`` (and
     ``chan + 1``), its metadata to column ``chan``, DSE and FIL elements are
@@ -484,7 +498,6 @@ def dense_packet_reference(words, size_bits, offsets, *, kb, F, C, depth, pb_cfg
     dev = words.device
     size_bits = size_bits.to(L)
     offsets = offsets.to(L)
-    element = dense_element_reference if element is None else element
     passes = 2 if C > 1 else 1
     z = torch.zeros(B, dtype=L, device=dev)
     bitpos, chan, err, ns = z, z, z, z + F
@@ -506,7 +519,7 @@ def dense_packet_reference(words, size_bits, offsets, *, kb, F, C, depth, pb_cfg
         err = torch.where(over, ERR_OVERRUN, err)
         active = active & ~over
         allow_cpe = chan + 2 <= C
-        r, bp2, kerr, m = element(
+        r, bp2, kerr, m = dense_element_reference(
             words, bitpos.to(i32), active.to(i32), size_bits.to(i32), ns.to(i32),
             allow_cpe.to(i32), kb=kb, F=F, depth=depth, pb_cfg=pb_cfg, mb_cfg=mb_cfg,
             passes=passes,

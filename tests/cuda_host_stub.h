@@ -3,8 +3,9 @@
 // kernel's code runs on the CPU.  tests/test_torch_csrc_host.py force-includes
 // this header and rewrites every `kernel<<<grid, block, 0, stream>>>(args)`
 // launch into a loop over blocks and threads that calls the kernel as a
-// function.  The kernels use no shared memory and no barriers, so running
-// their threads one after another computes what the card computes.
+// function.  The kernels use no shared memory, no barriers and no warp
+// shuffles, so running their threads one after another computes what the
+// card computes.
 #pragma once
 
 #include <algorithm>
@@ -23,10 +24,26 @@ using std::min;
 struct HostDim3 {
   unsigned x, y, z;
 };
-static HostDim3 blockIdx, threadIdx;
+static HostDim3 blockIdx, threadIdx, blockDim;
 
 typedef void* cudaStream_t;
-inline int cudaGetLastError() { return 0; }
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline int cudaGetLastError() { return cudaSuccess; }
+
+// Funnel shifts: (hi:lo) shifted by shift & 31 (wrapping form) or by
+// min(shift, 32) (clamping forms).
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned shift) {
+  const uint64_t v = (static_cast<uint64_t>(hi) << 32) | lo;
+  return static_cast<unsigned>((v << (shift & 31)) >> 32);
+}
+inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned shift) {
+  const uint64_t v = (static_cast<uint64_t>(hi) << 32) | lo;
+  return static_cast<unsigned>((v << (shift < 32 ? shift : 32)) >> 32);
+}
+inline unsigned __funnelshift_rc(unsigned lo, unsigned hi, unsigned shift) {
+  const uint64_t v = (static_cast<uint64_t>(hi) << 32) | lo;
+  return static_cast<unsigned>(v >> (shift < 32 ? shift : 32));
+}
 
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz(static_cast<unsigned>(x)); }
 template <class T>

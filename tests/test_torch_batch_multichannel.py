@@ -80,9 +80,9 @@ def test_multichannel_decode_of_the_ports_own_encoders(depth, C, bsf, Fc, backen
 @pytest.mark.parametrize("depth,C", [(16, 1), (16, 2), (20, 3), (24, 6), (16, 8)])
 def test_layouts_and_malformed_packets_match_the_oracle(depth, C):
     """Every packet of the walk test's batch, one at a time: the oracle's
-    bytes, or an error of the oracle's class.  For C > 2 the multi-element
-    layouts decode on the device path; the single-slot layout (C <= 2)
-    sends them to the host."""
+    bytes, or an error of the oracle's class.  The multi-element layouts
+    (SCE+SCE stereo and FIL/DSE elements before the audio among them)
+    decode on the device path, with no packet on the host."""
     cfg = make_config(depth=depth, channels=C, frame_length=64)
     names, pkts = multislot.batch_packets(cfg, 50 * depth + C)
     dec = BatchDecoder(cfg, "cpu")
@@ -94,10 +94,11 @@ def test_layouts_and_malformed_packets_match_the_oracle(depth, C):
         if isinstance(w, str):  # alone: the first malformed packet of a batch raises
             assert _port_result(dec, [clean[0], p]) == w, name
     layouts = dict(zip(names, pkts))
-    if C > 2:
-        fit = [layouts[n] for n in ("all_sce", "skips_between", "early_end", "sce_sce_sce",
-                                    "skips_sce_pair", "sce_end") if n in layouts]
-        assert fit and dec.decode_packets(fit) and dec.impl.last_fallbacks == 0
+    fit = [layouts[n] for n in ("skips_sce", "dse_sce", "fil_sce_partial", "sce_sce",
+                                "skips_pair", "sce_skips_sce", "all_sce", "skips_between",
+                                "early_end", "sce_sce_sce", "skips_sce_pair", "sce_end")
+           if n in layouts]
+    assert fit and dec.decode_packets(fit) and dec.impl.last_fallbacks == 0
 
 
 @pytest.mark.parametrize("channels", [0, 9])

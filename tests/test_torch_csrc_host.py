@@ -46,7 +46,7 @@ _LAUNCH = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<(.*?),\s*(\w+),\s*0,.*?>>>\(", re.S
 def _host_source(text: str) -> str:
     text = text.replace("#include <cuda_runtime.h>", "")
     text, n = _LAUNCH.subn(
-        r"for (blockIdx.x = 0; blockIdx.x < unsigned(\2); ++blockIdx.x) "
+        r"for (blockDim.x = unsigned(\3), blockIdx.x = 0; blockIdx.x < unsigned(\2); ++blockIdx.x) "
         r"for (threadIdx.x = 0; threadIdx.x < unsigned(\3); ++threadIdx.x) \1(",
         text,
     )
@@ -169,15 +169,176 @@ def test_dense_entropy_kernel_host_matches_plain(host_lib, name):
     args = entropy_cases.torch_args(args)
     want = walk_kernel.dense_entropy_reference(*args, **kw)
     got = [torch.full_like(x, SENTINEL) for x in want]
-    B, W = args[0].shape
+    words = args[0]
+    B, W = words.shape
     rc = host_lib.alac_dense_entropy_launch(
-        _ptr(args[0]), W, *(_ptr(t) for t in args[1:]), *(_ptr(t) for t in got),
-        B, walk_kernel.f_pad(entropy_cases.F), kw["passes"], kw["kb"], None,
+        _ptr(words), W, *(_ptr(t) for t in args[1:]), *(_ptr(t) for t in got),
+        B, walk_kernel.f_pad(entropy_cases.F), kw["passes"], kw["kb"],
+        None,
     )
     assert rc == 0
     assert want[0].any()
     for field, g, w in zip(("rows", "bitpos", "err"), got, want):
         assert torch.equal(g, w), f"{field} differs at {torch.nonzero(g != w)[:5].tolist()}"
+
+
+def _entropy_edge(name):
+    """dense_entropy inputs at an edge of the walk loop (B=128 lanes of
+    F=64 rows, one pass): (arguments, keywords, what the case must show)."""
+    B, Fe, ec = entropy_cases.B, entropy_cases.F, entropy_cases
+    kind, _, arg = name.partition("-")
+    seed = sorted(ENTROPY_EDGES).index(name)
+    rng = np.random.default_rng(500 + seed)
+    ns = ec.lane_counts()
+    kb, cb, mb = 14, 17, np.full(B, ec.MB, np.int32)
+    start = np.zeros(B, np.int64)
+    res = ec.residual_lanes(seed, cb)
+    if kind == "lastword":
+        ns = np.minimum(ns, 40)
+    if kind == "straddle":  # every start phase 0..127: codewords across every bit of a word
+        start = np.arange(B, dtype=np.int64)
+        res = rng.integers(-60, 60, (B, Fe))
+    elif kind == "escape":  # suffixes of max_size bits, values over 0xFFFF saturating the mean
+        cb = int(arg)
+        half = 1 << (cb - 1)
+        res = rng.integers(-half + 1, half, (B, Fe))
+        res[::4] = rng.integers(-60, 60, (B // 4, Fe))
+    elif kind == "kb":
+        kb = int(arg)
+    if kind in ("zerorun", "fuzz"):
+        # Streams written bit by bit: a 0 codeword (mb 0: k 1, value 0, so
+        # the mean stays 0 and a zero run starts), then a 9-one run code
+        # with a 16-bit count, then random bits; or random bits alone.
+        bits = rng.integers(0, 2, (B, 40 * Fe)).astype(np.uint8)
+        if kind == "zerorun":
+            mb[:] = 0
+            for b in range(B):
+                run = (65535, 65535, 65534, 1)[b % 4]
+                bits[b, :26] = [0] + [1] * 9 + [int(c) for c in format(run, "016b")]
+            ns[:] = 65535 + np.array([1, 0, 64, 2])[np.arange(B) % 4]  # 65535 + 1 > 65535: ERR_SAMPLES
+        else:
+            mb = np.array([0, 10, 0xFFFF, 0x40000000, 0x7FFFFFF0] * B, np.int32)[:B]
+            ns[::3] = 0x7FFFFFFF
+        words = np.packbits(bits, axis=1).view(">u4").astype(np.uint32).view(np.int32)
+        sizes = np.full(B, bits.shape[1], np.int64)
+        max_size = rng.integers(0, 33, B).astype(np.int32)
+    else:
+        streams, nbits = ec.port_streams(res, ns, 40, cb, kb)
+        prefix = [rng.integers(0, 2, int(n)).astype(np.uint8) for n in start]
+        words = ec.pack_bits([prefix, streams])
+        sizes = start + nbits
+        max_size = np.full(B, cb, np.int32)
+        if kind == "lastword":
+            # The longest stream ends in the row's last word, and every lane
+            # walks past its stream (ns 64 rows, at most 40 codewords
+            # written) and claims 64 bits more: the reads past the row see
+            # zeros, not the next row.
+            words = words[:, : (int(sizes.max()) + 31) // 32]
+            sizes = sizes + 64
+            ns = np.full(B, Fe, np.int32)
+        elif kind == "width":  # W % 4 == 1, 2, 3
+            words = np.pad(words, ((0, 0), (0, (int(arg) - words.shape[1]) % 4)))
+            assert words.shape[1] % 4 == int(arg)
+    i32 = np.int32
+    ones = np.ones(B, i32)
+    args = (words, start.astype(i32), ones, ones * 40, max_size, ns.astype(i32),
+            sizes.astype(i32), mb, ones, ones * 40)
+    return entropy_cases.torch_args(args), dict(kb=kb, F=Fe, passes=1)
+
+
+ENTROPY_EDGES = ("straddle", "lastword", "escape-16", "escape-24", "escape-32", "zerorun",
+                 "fuzz", "kb-1", "kb-14", "kb-31", "width-1", "width-2", "width-3")
+
+
+@pytest.mark.parametrize("name", ENTROPY_EDGES)
+def test_walk_loop_edges_host_match_plain(host_lib, name):
+    """The walk loop of the three walk kernels (dense_entropy runs it alone)
+    at the edges of its design: codewords across every bit of a word, a
+    stream running to the row's last word and reads past it, escape
+    suffixes of 16, 24 and 32 bits (the mean saturating at 0xFFFF), zero
+    runs of 65,535 (the longest count a run code holds) with ns too short
+    for one, random bits with means from 0 to 2^31 - 16 (runs of any
+    length, wrapped counts), kb 1, 14 and 31, and W % 4 == 1, 2, 3.  Every
+    output of every lane equal to the plain version's."""
+    args, kw = _entropy_edge(name)
+    want = walk_kernel.dense_entropy_reference(*args, **kw)
+    got = [torch.full_like(x, SENTINEL) for x in want]
+    words = args[0]
+    B, W = words.shape
+    rc = host_lib.alac_dense_entropy_launch(
+        _ptr(words), W, *(_ptr(t) for t in args[1:]), *(_ptr(t) for t in got),
+        B, walk_kernel.f_pad(kw["F"]), kw["passes"], kw["kb"], None,
+    )
+    assert rc == 0
+    rows, err = want[0], want[2]
+    assert rows.any()
+    if name == "zerorun":
+        assert int((err == walk_kernel.ERR_SAMPLES).sum()) == entropy_cases.B // 4
+    if name in ("fuzz", "lastword"):
+        assert int((err == 0).sum()) >= 8
+    if name.startswith("escape"):
+        assert int(rows.abs().max()) > 0xFFFF or name == "escape-16"
+    for field, g, w in zip(("rows", "bitpos", "err"), got, want):
+        assert torch.equal(g, w), f"{field} differs at {torch.nonzero(g != w)[:5].tolist()}"
+
+
+def test_walk_loop_long_zero_runs_host_match_plain(host_lib):
+    """Zero runs of 65,535 that end inside the pass (F = 65,600 rows, 8
+    lanes): after such a run the next codeword takes no zmode bias, after a
+    shorter one it does; then random bits.  Every output equal to the plain
+    version's."""
+    B, Fe = 8, 65600
+    rng = np.random.default_rng(77)
+    bits = rng.integers(0, 2, (B, 2048)).astype(np.uint8)
+    for b in range(B):
+        run = (65535, 65534, 65535, 60000)[b % 4]
+        # a 0 codeword (mb 0: k 1, value 0), the 9-one run code and its count
+        bits[b, :26] = [0] + [1] * 9 + [int(c) for c in format(run, "016b")]
+    words = np.packbits(bits, axis=1).view(">u4").astype(np.uint32).view(np.int32)
+    i32 = np.int32
+    ones = np.ones(B, i32)
+    args = entropy_cases.torch_args((
+        words, np.zeros(B, i32), ones, ones * 40, ones * 17, np.full(B, Fe, i32),
+        np.full(B, bits.shape[1], i32), np.zeros(B, i32), ones, ones * 40))
+    kw = dict(kb=14, F=Fe, passes=1)
+    want = walk_kernel.dense_entropy_reference(*args, **kw)
+    got = [torch.full_like(x, SENTINEL) for x in want]
+    rc = host_lib.alac_dense_entropy_launch(
+        _ptr(args[0]), words.shape[1], *(_ptr(t) for t in args[1:]), *(_ptr(t) for t in got),
+        B, walk_kernel.f_pad(Fe), 1, 14, None,
+    )
+    assert rc == 0
+    # Three of the lanes with a 65,535 run decode codewords after it.
+    assert want[0][0, 65536:, [0, 2, 4]].any(axis=0).all()
+    for field, g, w in zip(("rows", "bitpos", "err"), got, want):
+        assert torch.equal(g, w), f"{field} differs at {torch.nonzero(g != w)[:5].tolist()}"
+
+
+@pytest.mark.parametrize("depth", [16, 24, 32])
+def test_raw_lanes_host_match_plain(host_lib, depth):
+    """Escape (raw) packets, which raw_pass walks off the codeword loop: mono
+    and stereo at 16, 24 and 32 bits, full, partial and truncated packets,
+    through the packet kernel and the element kernel."""
+    for C in (1, 2):
+        cfg = make_config(depth=depth, channels=C, frame_length=F)
+        pcm = music_pcm(3 * F - 37, C, min(depth, 24), seed=depth + C)
+        pk = native.encode_packets(cfg, pcm, escape=True)
+        pk += [pk[0][: len(pk[0]) // 2]]
+        words, sizes = TorchBatchDecoder(cfg, "cpu")._stage(pk)
+        B, W = words.shape
+        offsets = torch.tensor(CHANNEL_LAYOUT_OFFSETS[C - 1], dtype=torch.int32)
+        kw = dict(kb=cfg.kb, F=F, C=C, depth=depth, pb_cfg=cfg.pb, mb_cfg=cfg.mb)
+        want = walk_kernel.dense_packet_reference(words, sizes, offsets, **kw)
+        got = [torch.full_like(x, SENTINEL) for x in want]
+        rc = host_lib.alac_packet_launch(
+            _ptr(words), W, _ptr(sizes), _ptr(offsets), *(_ptr(t) for t in got),
+            B, C, F, walk_kernel.f_pad(F), cfg.kb, depth, cfg.pb, cfg.mb, None,
+        )
+        assert rc == 0
+        esc = want[3][walk_kernel.PACKET_FIELDS.index("esc")]
+        assert int(esc[:, 0].sum()) >= 3 and int(want[1][len(pk) - 1]) != 0
+        for name, g, w in zip(("rows", "err", "ns", "meta", "coefs"), got, want):
+            assert torch.equal(g, w), f"C={C} {name} differs at {torch.nonzero(g != w)[:5].tolist()}"
 
 
 @pytest.mark.parametrize("depth,bsf,taps,C", _cases((9, 1), (9, 2), (32, 1), (32, 2)))

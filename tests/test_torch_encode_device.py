@@ -364,15 +364,18 @@ def test_native_raises_for_a_spec_it_cannot_express(case):
 
 
 def test_native_encode_with_spec_matches_jax_native():
-    """The port's binding hands the core the spec as the JAX package's does."""
-    from saprobe_alac_tpu import native as jnative
+    """The port's binding hands the core every field of a pinned spec (no
+    fitting: the JAX package's Python encoder fits per channel, the core per
+    packet): its packet is byte-equal to the JAX package's pure-Python
+    encoder's, whose format the C++ core shares."""
+    from saprobe_alac_tpu.encoder.encode import encode_packet as py_encode_packet
 
     cfg = make_config(depth=24, channels=2, frame_length=F)
     pcm = music_pcm(F, 2, 24, seed=70)
-    spec = EncoderSpec(channel=ChannelSpec(order=8, mode=1, pb_factor=3, den_shift=10),
+    spec = EncoderSpec(channel=ChannelSpec(order=8, mode=1, pb_factor=3, den_shift=10, fit=False),
                        bytes_shifted=1, mix_bits=2, mix_res=3)
     got = native.encode_with_spec(cfg, encoder_spec_from_jax(spec), [pcm])
-    assert got == [jnative.encode_packet(cfg, spec, pcm)]
+    assert got == [py_encode_packet(cfg, spec, pcm)]
 
 
 def test_port_encodes_with_jax_blocked():

@@ -1,12 +1,13 @@
-"""The port's element walk (plain version) against the JAX package.
+"""The port's walk (plain version) against the JAX package at C = 1 and 2.
 
-The port runs the single-slot layout (one SCE or CPE per packet).  Held bit
-for bit (tolerance 0) against `_walk_batch(impl="xla")` on every WalkResult
-field, and once against the fused Pallas element kernel itself
-(`impl="pallas_interpret", fused=True`, B=128).  Lanes the port routes to
-the host with ERR_SLOTS (layouts needing a second element slot) are the
-error contract of the fused layout; the xla slot loop decodes them itself,
-so they are left out of the xla comparison.
+`walk_batch` is one packet walk for every channel count.  Held bit for bit
+(tolerance 0) against `_walk_batch(impl="xla")` (the JAX slot loop) on every
+WalkResult field of every lane, and against the JAX package's own choice
+for C <= 2, the fused single-slot Pallas element kernel
+(`impl="pallas_interpret", fused=True`, B=128): equal on every lane the
+fused layout decodes itself, and equal to the JAX slot loop on the lanes it
+hands the host with ERR_SLOTS (SCE+SCE stereo, FIL/DSE elements first),
+which the port decodes.
 """
 
 import numpy as np
@@ -25,6 +26,8 @@ from saprobe_alac_tpu.ops.epilogue import extract_escape
 from saprobe_alac_tpu_torch import interop
 from saprobe_alac_tpu_torch.ops import walk as pwalk
 from saprobe_alac_tpu_torch.ops import walk_kernel as pwalk_kernel
+
+import test_torch_walk_multislot as multislot
 
 F = 256
 
@@ -91,8 +94,7 @@ def _vs_xla(cfg, pkts):
         )
     )
     ref = interop.walk_result_from_jax(ref, F, C)
-    lanes = port.err.numpy() != pwalk.ERR_SLOTS
-    _assert_same(port, ref, lanes, F)
+    _assert_same(port, ref, np.ones(len(pkts), bool), F)
     return port
 
 
@@ -120,18 +122,27 @@ def test_walk_matches_xla_corrupt_packets(C):
 
 def test_walk_matches_fused_pallas_kernel():
     """B=128 runs the JAX package's fused single-slot layout through the
-    Pallas element kernel in interpret mode: every field and err equal."""
+    Pallas element kernel in interpret mode: every field and err equal on
+    the lanes it decodes; on the SCE+SCE and FIL/DSE lanes it hands the host
+    (ERR_SLOTS), every field equal to the JAX slot loop's."""
     cfg, pkts = _packets(2, n=3 * F - 37, seed=11)
     _, noise = _packets(2, tonality=0.0, n=2 * F, seed=12)
     _, bad = _corrupt(2)
-    base = pkts + noise + bad
+    pcm = music_pcm(F, 2, 16, seed=13)
+    layouts = [multislot.build_packet(cfg, pcm, lay) for lay in ("SS", "KDP", "SDS")]
+    base = pkts + noise + bad + layouts
     batch = [base[i % len(base)] for i in range(128)]
     words, sizes = pack_packets(batch)
     port = _port_walk(cfg, words, sizes)
-    ref = _jax_walk(cfg, words, sizes, "pallas_interpret", fused=True)
-    ref = interop.walk_result_from_jax(ref, F, 2)
-    assert ref.res.shape == port.res.shape
-    _assert_same(port, ref, np.ones(128, bool), F)
+    fused = interop.walk_result_from_jax(
+        _jax_walk(cfg, words, sizes, "pallas_interpret", fused=True), F, 2)
+    loop = interop.walk_result_from_jax(_jax_walk(cfg, words, sizes, "pallas_interpret"), F, 2)
+    assert fused.res.shape == port.res.shape
+    slots = fused.err.numpy() == pwalk.ERR_SLOTS
+    assert slots.sum() >= 3 * (128 // len(base))
+    _assert_same(port, fused, ~slots, F)
+    _assert_same(port, loop, slots, F)
+    assert (port.err.numpy()[slots] == 0).all()
 
 
 def test_constants_match_jax():
@@ -141,3 +152,28 @@ def test_constants_match_jax():
     for name in dir(jwalk_kernel):
         if name.startswith("M_") or name == "META_ROWS":
             assert getattr(pwalk_kernel, name) == getattr(jwalk_kernel, name), name
+
+
+@pytest.mark.parametrize("kernel", ["element", "packet", "entropy"])
+@pytest.mark.parametrize("kb", [-1, 256])
+def test_walk_kernels_reject_kb_outside_the_cookie_byte(kernel, kb):
+    """kb is the cookie's byte: every walk wrapper raises outside 0..255, on
+    the CPU as on the card, since the walk loop's one cursor step a codeword
+    needs 0 <= kb."""
+    one = torch.ones(4, dtype=torch.int32)
+    words = torch.zeros((4, 8), dtype=torch.int32)
+    call = {
+        "element": lambda: pwalk_kernel.dense_element(
+            words, one, one, one, one, one, kb=kb, F=16, depth=16, pb_cfg=40, mb_cfg=10,
+            passes=1,
+        ),
+        "packet": lambda: pwalk_kernel.dense_packet(
+            words, one, torch.zeros(1, dtype=torch.int32), kb=kb, F=16, C=1, depth=16,
+            pb_cfg=40, mb_cfg=10,
+        ),
+        "entropy": lambda: pwalk_kernel.dense_entropy(
+            words, one, one, one, one, one, one, one, kb=kb, F=16,
+        ),
+    }[kernel]
+    with pytest.raises(ValueError, match="kb must be 0..255"):
+        call()

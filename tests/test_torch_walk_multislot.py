@@ -1,7 +1,7 @@
 """The port's packet walk (plain version) against the JAX package's slot loop.
 
-`walk_batch(fused=False)` walks every element of a packet (any C = 1..8):
-held bit for bit (tolerance 0) against the non-fused `_walk_batch` with
+`walk_batch` walks every element of a packet (any C = 1..8): held bit for
+bit (tolerance 0) against the non-fused `_walk_batch` with
 `impl="xla"` and with `impl="pallas_interpret"` (the Pallas element kernel
 inside the slot loop, whose contract the packet kernel carries) on every
 WalkResult field: of every lane against the Pallas path; against the xla
@@ -173,10 +173,10 @@ def batch_packets(cfg, seed, bsf=0):
     return names + list(layouts), pk + list(layouts.values())
 
 
-def port_walk(cfg, words, sizes, fused=False):
+def port_walk(cfg, words, sizes):
     return pwalk.walk_batch(
         torch.from_numpy(words), torch.from_numpy(sizes), F=cfg.frame_length,
-        C=cfg.num_channels, depth=cfg.bit_depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb, fused=fused,
+        C=cfg.num_channels, depth=cfg.bit_depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb,
     )
 
 
@@ -261,25 +261,66 @@ def test_packet_walk_matches_jax_slot_loop(depth, C, bsf, impl):
 
 @pytest.mark.parametrize("C", [1, 2])
 def test_packet_walk_agrees_with_single_slot_walk(C):
-    """On single-element packets the two walks of the port agree on every
-    field, the fused layout's rows being the packet walk's planes."""
+    """On single-element packets (music, noise, corrupted) the packet walk
+    gives what one element walk (the element kernel's plain version) gives:
+    the rows of its passes as the channel planes, its error codes, and its
+    metadata in channels 0 (and 1 for a pair)."""
     cfg = make_config(depth=16, channels=C, frame_length=F)
     pkts = encode_packets(cfg, EncoderSpec(), music_pcm(2 * F + 57, C, 16, seed=C))
+    pkts += encode_packets(cfg, EncoderSpec(), music_pcm(F, C, 16, seed=C + 1, tonality=0.02))
+    pkts += [pkts[0][: len(pkts[0]) // 4], b"\xff" * 40]
     words, sizes = pack_packets(pkts)
-    a, b = port_walk(cfg, words, sizes, fused=True), port_walk(cfg, words, sizes, fused=False)
-    for field in a._fields:
-        assert torch.equal(getattr(a, field), getattr(b, field)), field
+    got = port_walk(cfg, words, sizes)
+    B = len(pkts)
+    i32 = torch.int32
+    t = torch.from_numpy
+    rows, _, err, meta = pwalk_kernel.dense_element_reference(
+        t(words), torch.zeros(B, dtype=i32), (t(sizes) > 0).to(i32), t(sizes),
+        torch.full((B,), F, dtype=i32), torch.full((B,), int(C > 1), dtype=i32),
+        kb=cfg.kb, F=F, depth=16, pb_cfg=cfg.pb, mb_cfg=cfg.mb, passes=C,
+    )
+    elem = (meta[pwalk_kernel.M_SCE] == 1) | (meta[pwalk_kernel.M_CPE] == 1)
+    ok = (err == 0) & elem
+    assert int(ok.sum()) >= 4 and (meta[pwalk_kernel.M_ESC] == 1).any()
+    assert torch.equal(got.err, err) and int((err != 0).sum()) >= 1
+    # The all-ones packet is an END first: no element, no error, nothing filled.
+    end = meta[pwalk_kernel.M_TAG] == 7
+    assert end.any() and not got.filled[end].any()
+    assert torch.equal(got.res[:, :, ok], rows[:, :, ok])
+    assert torch.equal(got.ns[ok], meta[pwalk_kernel.M_NS][ok])
+    comp = meta[pwalk_kernel.M_COMP][ok] == 1
+    fields = {
+        "order": (pwalk_kernel.M_NUM_U, pwalk_kernel.M_NUM_V),
+        "mode": (pwalk_kernel.M_MODE_U, pwalk_kernel.M_MODE_V),
+        "den": (pwalk_kernel.M_DEN_U, pwalk_kernel.M_DEN_V),
+    }
+    for name, rows_uv in fields.items():
+        for c in range(C):
+            want = torch.where(comp, meta[rows_uv[c]][ok], 0)
+            assert torch.equal(getattr(got, name)[ok, c], want), (name, c)
+    for c in range(C):
+        assert torch.equal(got.esc[ok, c], meta[pwalk_kernel.M_ESC][ok]), c
+        assert torch.equal(got.shift_base[ok, c], meta[pwalk_kernel.M_SHIFT_BASE][ok]), c
+        coef_rows = pwalk_kernel.M_COEFS_U if c == 0 else pwalk_kernel.M_COEFS_V
+        want = torch.where(comp[:, None], meta[coef_rows:coef_rows + 32, ok].T, 0)
+        assert torch.equal(got.coefs[ok, c], want), c
+    assert (got.filled[ok] == 1).all()
 
 
 def test_fused_default_follows_channel_count():
-    """Without ``fused`` the walk picks the single-slot layout for C <= 2
-    (ERR_SLOTS for SCE+SCE) and the packet walk above it."""
-    cfg = make_config(depth=16, channels=2, frame_length=F)
-    pkt = build_packet(cfg, music_pcm(F, 2, 16, seed=3), "SS")
-    words, sizes = pack_packets([pkt])
-    kw = dict(F=F, C=2, depth=16, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
+    """No layout to pick: ``walk_batch`` takes no ``fused`` argument, and at
+    C = 1 and 2 it decodes the packets the JAX package's single-slot layout
+    hands the host (SCE+SCE stereo, FIL/DSE elements before the audio) with
+    err 0, equal to the JAX slot loop on every field."""
     t = torch.from_numpy
-    assert pwalk.walk_batch(t(words), t(sizes), **kw).err.tolist() == [pwalk.ERR_SLOTS]
-    assert pwalk.walk_batch(t(words), t(sizes), fused=False, **kw).err.tolist() == [0]
-    with pytest.raises(ValueError):
-        pwalk.walk_batch(t(words), t(sizes), fused=True, **dict(kw, C=3))
+    for C, layouts in ((1, ("KS", "DS", "fS")), (2, ("SS", "KDP", "SDS", "fP"))):
+        cfg = make_config(depth=16, channels=C, frame_length=F)
+        pcm = music_pcm(F, 2, 16, seed=3 + C)
+        pkts = [build_packet(cfg, pcm, lay) for lay in layouts]
+        words, sizes = pack_packets(pkts)
+        kw = dict(F=F, C=C, depth=16, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
+        with pytest.raises(TypeError):
+            pwalk.walk_batch(t(words), t(sizes), fused=True, **kw)
+        port = port_walk(cfg, words, sizes)
+        assert port.err.tolist() == [0] * len(pkts) and (port.filled == 1).all()
+        assert_same(port, jax_walk(cfg, words, sizes, "xla"), list(layouts), F)
