@@ -7,8 +7,9 @@ Run from the repository root on a machine with one CUDA card:
 Phases, one line each (any failure raises and exits non-zero):
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
   2. build of the CUDA kernels (csrc/, nvcc) and of the C++ host core
-     (native/, g++); the three walk kernels' registers, stack and spills as
-     ptxas reports them;
+     (native/, g++); the three walk kernels' and the LPC kernel's four
+     instantiations' registers, stack and spills as ptxas reports them, and
+     the instructions of each LPC row loop (SASS, cuobjdump);
   3. the element and LPC kernels against their plain PyTorch versions on
      the card, B=256 packets of F=512, 16-bit stereo, tolerance 0 (integer
      code): music, a partial final packet, near-white noise (escape
@@ -24,7 +25,8 @@ Phases, one line each (any failure raises and exits non-zero):
      lanes), tolerance 0; kernel times by CUDA events (median of warm runs),
      each plain version's once; the element kernel (off the decode path)
      timed on the same batch; each walk kernel's ns and SM cycles per
-     decoded row, at the clock nvidia-smi reads while it runs;
+     decoded row, and the LPC kernel's per row, at the clock nvidia-smi
+     reads while it runs;
   6. all three kernels against their plain versions, B=256 packets of
      F=512 (a plain element walk costs its op launches per row, and phases
      5 and 8 hold the kernels at F=4096), tolerance 0, on the inputs the
@@ -41,7 +43,8 @@ Phases, one line each (any failure raises and exits non-zero):
      phase 4;
   8. the packet, LPC and raw reader kernels against their plain versions at
      the shapes phase 7 gave them, tolerance 0; their times by CUDA events beside their bounds
-     and the plain versions' times; the raw reader cold (L2 flushed before
+     and the plain versions' times, the LPC's SM cycles a row; the raw
+     reader cold (L2 flushed before
      each launch) and warm (20 launches back to back);
   9. 20-bit stereo and 32-bit stereo bytesShifted=2 decodes (B=256), bytes
      equal to the source;
@@ -59,20 +62,23 @@ Phases, one line each (any failure raises and exits non-zero):
      on the default device for the B=2048 packets of phase 4's 44.1 kHz
      16-bit stereo PCM with EncoderSpec(channel=ChannelSpec(order=6,
      fit=True)); the packets through BatchDecoder(cfg) on the card: bytes
-     equal to the source, no host fallback; the forward LPC and encode
-     launch counts above zero; total packet bytes within 2% of the C++ host
+     equal to the source, no host fallback; one forward LPC launch for the
+     pair's two channels and the encode launches above zero; total packet
+     bytes within 2% of the C++ host
      encoder's; both encoders timed by the host clock (x realtime); one
      call under torch.profiler for the card's busy time and top kernels.  Then
      B=256 packets of 96 kHz 24-bit stereo with bytesShifted=1 the same
      way, and B=256 16-bit packets with pinned coefficients, whose bytes
      equal the C++ host encoder's;
  13. both encode-side kernels against their plain versions on the inputs of
-     every launch of one more such call (collected by the path itself: two
-     forward LPC and two encode launches of L=2048 lanes), tolerance 0, no
+     every launch of one more such call (collected by the path itself: one
+     forward LPC launch of L=4096 lanes and two encode launches of 2048),
+     tolerance 0, no
      lane overflowing its row: each kernel launched on each launch's own
      inputs, its plain version run once over the lanes of all of them side
      by side; kernel times by CUDA events (median of warm runs) beside
-     their bounds, each plain version's one run;
+     their bounds, each plain version's one run, the forward LPC's SM
+     cycles a row;
      encode_walk alone (the device part of the call) on the call's own
      arguments, by CUDA events.
  14. the packet kernel (every element of a packet in one launch) against
@@ -93,7 +99,8 @@ Phases, one line each (any failure raises and exits non-zero):
      plain version (five elements a packet: eight passes of 4096 rows of op
      launches, minutes), every output on every lane; the LPC kernel at
      L=16,384 lanes and the eight raw reads against their plain versions,
-     tolerance 0; their times by CUDA events beside their bounds;
+     tolerance 0; their times by CUDA events beside their bounds, the LPC's
+     SM cycles a row;
  17. the dense entropy kernel (the walk alone, no parse) on its probe path:
      streams made by the encode kernel, no framing.  Against its plain
      version at B=256, F=512, tolerance 0: two passes at kb 14 (suffix
@@ -105,7 +112,21 @@ Phases, one line each (any failure raises and exits non-zero):
      themselves, from the entropy start cursors of the element kernel's
      parse: rows and end cursors equal to the element kernel's, and that
      element kernel launch (its count in the JSON line) against its plain
-     version at B=2048, F=4096, tolerance 0; its time and bound.
+     version at B=2048, F=4096, tolerance 0; its time and bound;
+ 18. the LPC kernel's other bodies at B=2048, F=4096 (the earlier phases'
+     music is order 4, a body of its own): phase 4's PCM at orders 4 and 8
+     in turn (each warp runs both orders' bodies), at orders 4 and 7 in
+     turn (the general 9-tap loop), and at order 12 with every fourth
+     packet order 31, mode 1 (the 32-tap variant); then the forward
+     direction on the last two, their decoded rows as the signal; each
+     against its plain version, tolerance 0, its time, bound and SM cycles
+     a row;
+ 19. one BatchDecoder(cfg) on the card shared by four threads behind a
+     barrier (tests/test_stress_concurrent.py's shared-decoder case;
+     `shared_decoder`):
+     16-bit stereo F=128 packets, five random slices a thread, and phase
+     4's B=2048 F=4096 packets, three a thread; every slice's bytes equal
+     to the source, no host fallback.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its path, max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
@@ -117,10 +138,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import random
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 sys.modules["jax"] = None  # the port must not need JAX ...
 sys.modules["saprobe_alac_tpu"] = None  # ... nor the JAX package
@@ -131,6 +158,11 @@ import torch
 SEED = 20261016
 F = 4096
 RUNS = 5
+#: Launches a sample of the LPC's time spans, back to back: its wrapper's
+#: host work (~0.1 ms) shows in one launch's events beside a 0.4 ms kernel,
+#: and is hidden once launches queue.  Every other kernel's sample is one
+#: launch; the LPC's one-launch time is reported too (``ms_one``).
+LPC_REPS = 10
 #: The card's peaks (H100 SXM data sheet, at the 700 W limit): memory rate,
 #: and the CUDA-core rate (float32 outside the tensor cores), used for the
 #: integer operations as well, which keeps the operation bound generous.
@@ -249,14 +281,23 @@ def element_diff(got, want, M_NS):
     )
 
 
-def walk_ptxas(log: str) -> dict:
-    """Registers, stack and spills of the three walk kernels, from the
-    build's ``-Xptxas -v`` report: {kernel: "N registers, ... spill ..."}."""
+#: Kernels whose ptxas report phase 2 prints: a label and a substring of
+#: the mangled name (the LPC kernel's four instantiations,
+#: lpc_kernel<TAPS, FWD>).
+WALK_KERNELS = {k: k for k in ("element_kernel", "packet_kernel", "dense_entropy_kernel")}
+LPC_KERNELS = {
+    f"lpc<{taps},{'fwd' if fwd else 'dec'}>": f"lpc_kernelILi{taps}ELb{int(fwd)}E"
+    for taps in (9, 32) for fwd in (False, True)
+}
+
+
+def ptxas_report(log: str, kernels: dict) -> dict:
+    """Registers, stack and spills of the named kernels, from the build's
+    ``-Xptxas -v`` report: {label: "N registers, ... spill ..."}."""
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            cur = next((k for k in ("element_kernel", "packet_kernel", "dense_entropy_kernel")
-                        if k in ln), None)
+            cur = next((k for k, sub in kernels.items() if sub in ln), None)
         elif cur and "stack frame" in ln:
             out[cur] = ln.strip()
         elif cur and "Used" in ln and "registers" in ln:
@@ -265,10 +306,115 @@ def walk_ptxas(log: str) -> dict:
     return out
 
 
+def sass_loops(so_path, kernels: dict):
+    """The loops of each named kernel in the library's SASS (cuobjdump):
+    {label: [instructions in each loop, from a backward branch to its
+    target, smallest first]}, or None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(so_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    out, cur, labels, branches = {}, None, {}, []
+
+    def close():
+        if cur is not None:
+            loops = [(labels.get(t, t), a) for t, a in branches]
+            out[cur] = sorted((a - t) // 16 + 1 for t, a in loops if isinstance(t, int) and t <= a)
+
+    pending = []
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            close()
+            cur = next((k for k, sub in kernels.items() if sub in m.group(1)), None)
+            labels, branches, pending = {}, [], []
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+        if not m or cur is None:
+            continue
+        addr = int(m.group(1), 16)
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        b = re.search(r"\bBRA\b[^`(]*(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", m.group(2))
+        if b:
+            branches.append((b.group(1) or int(b.group(2), 16), addr))
+    close()
+    return out
+
+
+def walk_clock(fn, rows, ms):
+    """(ns, SM cycles, the clock in MHz) per row of a kernel that took
+    ``ms`` with ``rows`` rows a thread, at the SM clock nvidia-smi reads
+    while the kernel runs: launches of fn() are queued from before nvidia-smi
+    starts until it has answered, a few at a time, so the card is busy
+    for the whole read."""
+    for _ in range(4):
+        fn()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True,
+    )
+    try:
+        t_end = time.monotonic() + 60
+        while smi.poll() is None and time.monotonic() < t_end:
+            for _ in range(4):
+                fn()
+            torch.cuda.synchronize()
+        out, _ = smi.communicate(timeout=10)
+    finally:
+        if smi.poll() is None:
+            smi.kill()
+            smi.wait()
+    torch.cuda.synchronize()
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi clocks.sm failed: exit {smi.returncode}")
+    mhz = float(out.split()[0])
+    return ms * 1e6 / rows, ms * 1e-3 * mhz * 1e6 / rows, mhz
+
+
 def lpc_diff(a, b, ns):
     """Max abs difference of LPC outputs over rows t < ns of each lane."""
     valid = torch.arange(a.shape[0], device=a.device)[:, None] < ns[None, :]
     return amax((a - b).abs()[valid])
+
+
+def shared_decoder(port, c, packets, pcm_all, slices, seed, threads=4):
+    """Phase 19 (tests/test_stress_concurrent.py's shared-decoder case):
+    ``threads`` threads behind a barrier, each decoding ``slices`` random
+    slices of ``packets`` with one ``port.BatchDecoder(c)`` on the card.
+    Raises unless every slice's bytes equal the source; returns the packets
+    decoded."""
+    src = pcm_bytes(pcm_all, c.bit_depth)
+    per = len(src) // len(pcm_all) * c.frame_length
+    expected = [src[i * per : (i + 1) * per] for i in range(len(packets))]
+    dec_s = port.BatchDecoder(c)
+    barrier = threading.Barrier(threads)
+
+    def worker(k):
+        rng = random.Random(seed + k)
+        barrier.wait()
+        bad, n_dec = [], 0
+        for _ in range(slices):
+            lo = rng.randrange(0, len(packets) - 1)
+            hi = rng.randrange(lo + 1, len(packets) + 1)
+            out = dec_s.decode_packets(packets[lo:hi])
+            bad += [i for i, o in zip(range(lo, hi), out) if o != expected[i]]
+            n_dec += hi - lo
+        return bad, n_dec
+
+    with ThreadPoolExecutor(threads) as pool:
+        runs = list(pool.map(worker, range(threads)))
+    bad = sorted({i for b, _ in runs for i in b})
+    if bad or dec_s.impl.last_fallbacks:
+        raise AssertionError(f"shared BatchDecoder: packets {bad[:8]} differ from the "
+                             f"source ({dec_s.impl.last_fallbacks} host fallbacks)")
+    return sum(n for _, n in runs)
 
 
 def main() -> int:
@@ -299,8 +445,15 @@ def main() -> int:
     t_gxx = time.perf_counter() - t0 - t_nvcc
     regs = [ln.strip() for ln in _build.build_log().splitlines() if "registers" in ln or "spill" in ln]
     print(f"phase 2 build: kernels {t_nvcc:.3f} s, host core {t_gxx:.3f} s; ptxas: {' | '.join(regs)}")
-    walk_regs = walk_ptxas(_build.build_log())
+    walk_regs = ptxas_report(_build.build_log(), WALK_KERNELS)
     print(f"phase 2 walk kernels (ptxas): {walk_regs}")
+    lpc_regs = ptxas_report(_build.build_log(), LPC_KERNELS)
+    lpc_sass = sass_loops(_build._OUT / "liblpc_kernel.so", LPC_KERNELS)
+    print(
+        f"phase 2 lpc kernel (ptxas): {lpc_regs}; SASS instructions in each loop (rows a trip: "
+        f"8 in every 9-tap body and each order's body at 32 taps, 1 in the 32-tap general "
+        f"loop): {lpc_sass if lpc_sass is not None else 'not measured (no cuobjdump)'}"
+    )
 
     cfg = port.PacketConfig(
         frame_length=F, bit_depth=16, num_channels=2, pb=40, mb=10, kb=14,
@@ -374,35 +527,6 @@ def main() -> int:
             )
         return e, lp, el_ms, lpc_ms, n_err
 
-    def walk_clock(fn, rows, ms):
-        """(ns, SM cycles) per decoded row of a walk kernel that took ``ms``
-        with ``rows`` rows a thread, at the SM clock nvidia-smi reads while
-        the kernel runs: launches of fn() are queued from before nvidia-smi
-        starts until it has answered, a few at a time, so the card is busy
-        for the whole read."""
-        for _ in range(4):
-            fn()
-        smi = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-            stdout=subprocess.PIPE, text=True,
-        )
-        try:
-            t_end = time.monotonic() + 60
-            while smi.poll() is None and time.monotonic() < t_end:
-                for _ in range(4):
-                    fn()
-                torch.cuda.synchronize()
-            out, _ = smi.communicate(timeout=10)
-        finally:
-            if smi.poll() is None:
-                smi.kill()
-                smi.wait()
-        torch.cuda.synchronize()
-        if smi.returncode != 0:
-            raise RuntimeError(f"nvidia-smi clocks.sm failed: exit {smi.returncode}")
-        mhz = float(out.split()[0])
-        return ms * 1e6 / rows, ms * 1e-3 * mhz * 1e6 / rows, mhz
-
     # ---- phase 3: kernels against their plain versions (B=256) ----
     # Packets of F3 samples: a plain element walk costs its op launches per
     # row whatever B is, and phases 5 and 8 hold the kernels at F=4096.
@@ -438,7 +562,7 @@ def main() -> int:
     l_err = max(l_err, lpc_diff(a, b, w.ns.repeat(C)))
     if l_err != 0:
         raise AssertionError(f"LPC kernel (32 taps) differs from its plain version: {l_err}")
-    t_l32 = cuda_times(lambda: lpc_kernel.lpc_fir(*lpc_in, F=F3, taps=32))
+    t_l32 = cuda_times(lambda: lpc_kernel.lpc_fir(*lpc_in, F=F3, taps=32), reps=LPC_REPS)
     print(
         f"phase 3 kernels vs plain (B={B}, F={F3}, stereo, tolerance 0): element "
         f"max_abs_err={e_err} ({n_err} error lanes equal; plain {el_plain_256:.1f} ms), "
@@ -496,14 +620,19 @@ def main() -> int:
     t_el = cuda_times(lambda: walk_kernel.dense_element(*e_args2, **el_kw))
     clk_el = walk_clock(lambda: walk_kernel.dense_element(*e_args2, **el_kw), rows_st,
                         statistics.median(t_el))
-    t_lpc = cuda_times(lambda: lpc_kernel.lpc_fir(*lpc_in2, F=F, taps=9))
+    t_lpc = cuda_times(lambda: lpc_kernel.lpc_fir(*lpc_in2, F=F, taps=9), reps=LPC_REPS)
+    t_lpc1 = cuda_times(lambda: lpc_kernel.lpc_fir(*lpc_in2, F=F, taps=9))
+    clk_lpc = walk_clock(lambda: lpc_kernel.lpc_fir(*lpc_in2, F=F, taps=9), walk_kernel.f_pad(F),
+                         statistics.median(t_lpc))
     print(
         f"phase 5 {tag} kernels vs plain at B={B2} (L={2 * B2}), tolerance 0: max_abs_err "
         f"packet {pw_err}, lpc {l_err}; packet ms {summary(t_pk16)} | plain {pk_plain16:.1f} | "
         f"{clk_pk16[0]:.1f} ns, {clk_pk16[1]:.0f} cycles a row at {clk_pk16[2]:.0f} MHz; "
         f"element (not on the path) ms {summary(t_el)} | {clk_el[0]:.1f} ns, "
         f"{clk_el[1]:.0f} cycles a row at {clk_el[2]:.0f} MHz; "
-        f"lpc taps 9 ms {summary(t_lpc)} | plain {lpc_plain_ms:.1f}; lpc taps 32 at "
+        f"lpc taps 9 ms {summary(t_lpc)} (one launch a sample: {summary(t_lpc1)}) | plain "
+        f"{lpc_plain_ms:.1f} | {clk_lpc[0]:.1f} ns, "
+        f"{clk_lpc[1]:.0f} cycles a row at {clk_lpc[2]:.0f} MHz; lpc taps 32 at "
         f"L={2 * B}, F={F3} ms {summary(t_l32)} | plain {plain_ms_32:.1f}"
     )
 
@@ -647,7 +776,9 @@ def main() -> int:
     clk_pkh = walk_clock(lambda: walk_kernel.dense_packet(*h_p_args, **h_p_kw), rows_st,
                          statistics.median(t_pkh))
     t_hel = cuda_times(lambda: walk_kernel.dense_element(*h_e_args, **h_e_kw))
-    t_hlpc = cuda_times(lambda: lpc_kernel.lpc_fir(*h_lpc_in, F=F, taps=9))
+    t_hlpc = cuda_times(lambda: lpc_kernel.lpc_fir(*h_lpc_in, F=F, taps=9), reps=LPC_REPS)
+    clk_hlpc = walk_clock(lambda: lpc_kernel.lpc_fir(*h_lpc_in, F=F, taps=9),
+                          walk_kernel.f_pad(F), statistics.median(t_hlpc))
     h_el_bound, h_lpc_bound = walk_bounds(hw, hsizes, h_lpc_in)
     pkh_bound = packet_bound(hsizes, hw.ns, 2)
     # The raw reader cold (L2 flushed by a 1 GiB write before each launch,
@@ -677,7 +808,8 @@ def main() -> int:
         f"{pkh_bound[1]} | {clk_pkh[0]:.1f} ns, {clk_pkh[1]:.0f} cycles a row at "
         f"{clk_pkh[2]:.0f} MHz; element (not on the path) ms {summary(t_hel)} | bound "
         f"{h_el_bound[0]:.4f} by {h_el_bound[1]}; lpc taps 9 ms {summary(t_hlpc)} | plain "
-        f"{h_lpc_plain_ms:.1f} | bound {h_lpc_bound[0]:.4f} by {h_lpc_bound[1]}; raw reader "
+        f"{h_lpc_plain_ms:.1f} | bound {h_lpc_bound[0]:.4f} by {h_lpc_bound[1]} | "
+        f"{clk_hlpc[1]:.0f} cycles a row at {clk_hlpc[2]:.0f} MHz; raw reader "
         f"(the pair as one {int(step[0])}-bit field) ms cold {summary(t_rr)} | warm "
         f"{summary(t_rr_warm)} (20 launches per sample) | plain {summary(t_rr_plain)} | "
         f"bound {rr_bound[0]:.4f} by {rr_bound[1]}"
@@ -775,7 +907,7 @@ def main() -> int:
             x, ns11 = enc_lanes(cb, SEED + 50 + order)
             coefs = encode_device.fit_coefs(x, ns11.to(i64), order, 9, shared0)
             args, got_taps = encode_device._lpc_forward_args(
-                x, order, 9, cb, ns11, coefs, F11, mode)
+                [x], order, 9, cb, ns11, [coefs], F11, mode)
             if got_taps != taps:
                 raise AssertionError(f"order {order} runs at {got_taps} taps, not {taps}")
             sets.append((args, cb, ns11))
@@ -851,6 +983,10 @@ def main() -> int:
     fit_spec = port.EncoderSpec(channel=port.ChannelSpec(order=6, fit=True))
     chunks16 = [pcm[i : i + F] for i in range(0, len(pcm), F)]
     epk, e_launches, host_pk, first_s, host_enc_s = encode_and_check(cfg, fit_spec, pcm, "16-bit")
+    # One CPE a packet: the forward LPC runs once for both channels.
+    if e_launches["lpc_forward"] != 1:
+        raise AssertionError(f"16-bit stereo encode: {e_launches['lpc_forward']} forward LPC "
+                             "launches, want one for the element's two channels")
     enc_host = host_times(lambda: port.encode_packets_device(cfg, fit_spec, chunks16), runs=3)
     enc_med = statistics.median(enc_host)
     n_dev, n_host = sum(map(len, epk)), sum(map(len, host_pk))
@@ -938,9 +1074,10 @@ def main() -> int:
                              f"launches: max {err}")
     fwd_err = max(fwd_err, err)
     del got, want, f_all
-    t_fwd, fwd_bounds = [], []
+    t_fwd, t_fwd1, fwd_bounds = [], [], []
     for f_args, _ in by["lpc_forward"]:
-        t_fwd += cuda_times(lambda: lpc_kernel.lpc_fir(*f_args, **f_kw))
+        t_fwd += cuda_times(lambda: lpc_kernel.lpc_fir(*f_args, **f_kw), reps=LPC_REPS)
+        t_fwd1 += cuda_times(lambda: lpc_kernel.lpc_fir(*f_args, **f_kw))
         rows, order13, ns_f, coefs13 = f_args[0], f_args[2], f_args[5], f_args[8]
         fwd_bounds.append(bound(
             4 * (2 * rows.numel() + 7 * order13.numel() + coefs13.numel()),  # rows in and out
@@ -970,13 +1107,18 @@ def main() -> int:
             16 * float(e_args[5].sum()),  # a Rice code: clz, divide, shifts, mean update
         ))
     fwd_bound, enc_bound = max(fwd_bounds), max(enc_bounds)
+    f_args0 = by["lpc_forward"][0][0]
+    clk_fwd = walk_clock(lambda: lpc_kernel.lpc_fir(*f_args0, **f_kw), walk_kernel.f_pad(F),
+                         statistics.median(t_fwd))
     print(
         f"phase 13 {tag} encode-side kernels vs plain on every launch of one "
         f"encode_packets_device call (B={n_pk}, F={F}; {n_calls['lpc_forward']} forward lpc, "
         f"{n_calls['encode']} encode), tolerance 0: max_abs_err forward lpc {fwd_err}, encode "
-        f"{enc_err}, ovf 0; forward lpc taps {f_kw['taps']} ms {summary(t_fwd)} | plain "
+        f"{enc_err}, ovf 0; forward lpc taps {f_kw['taps']} ms {summary(t_fwd)} (one launch a "
+        f"sample: {summary(t_fwd1)}) | plain "
         f"(one run over every launch's lanes) {fwd_plain_ms:.1f} | bound {fwd_bound[0]:.4f} by "
-        f"{fwd_bound[1]}; encode ms {summary(t_enc)} | plain (one run) {enc_plain_ms:.1f} | "
+        f"{fwd_bound[1]} | {clk_fwd[1]:.0f} cycles a row at {clk_fwd[2]:.0f} MHz (L="
+        f"{f_args0[1].numel()}); encode ms {summary(t_enc)} | plain (one run) {enc_plain_ms:.1f} | "
         f"bound {enc_bound[0]:.4f} by {enc_bound[1]}; bodies "
         f"{body_bytes} bytes in rows of {e_kw['W_out']} words"
     )
@@ -1176,7 +1318,7 @@ def main() -> int:
     spacked, ms_finish = stage_ms(lambda: finish_packed(
         smix, sshift, sw.bs, sw.mixbits, sw.mixres, sw.role, sw.out_chan, sw.filled, C=8,
         depth=24))
-    shost, ms_down = stage_ms(lambda: impl._download(spacked))
+    (shost, sbuf), ms_down = stage_ms(lambda: impl._download(spacked))
     ns_host = sw.ns.cpu().numpy()
     _, ms_trim = stage_ms(lambda: [impl._to_bytes(shost[k], int(ns_host[k])) for k in range(n_pk)])
     print(
@@ -1186,7 +1328,8 @@ def main() -> int:
         f"{ms_finish:.1f}; download of {spacked.numel() * 4} bytes {ms_down:.1f}; trim to "
         f"{n_pk} bytes objects {ms_trim:.1f}"
     )
-    del smix, sshift, spacked, shost
+    impl._release(sbuf)
+    del smix, sshift, spacked, shost, sbuf
 
     # ---- phase 16: the 7.1 path's kernels at its shapes ----
     p_args, p_kw = packet_args(scfg, swords, ssizes)
@@ -1211,7 +1354,9 @@ def main() -> int:
     if s_l_err != 0:
         raise AssertionError(f"LPC kernel differs from its plain version at L={8 * n_pk}")
     l_err = max(l_err, s_l_err)
-    t_slpc = cuda_times(lambda: lpc_kernel.lpc_fir(*s_lpc_in, F=F, taps=9))
+    t_slpc = cuda_times(lambda: lpc_kernel.lpc_fir(*s_lpc_in, F=F, taps=9), reps=LPC_REPS)
+    clk_slpc = walk_clock(lambda: lpc_kernel.lpc_fir(*s_lpc_in, F=F, taps=9),
+                          walk_kernel.f_pad(F), statistics.median(t_slpc))
     order16, fir16 = s_lpc_in[2], s_lpc_in[1]
     L16 = order16.numel()
     s_lpc_bound = bound(
@@ -1239,7 +1384,8 @@ def main() -> int:
         f"{pk_bound[0]:.4f} by {pk_bound[1]} | {clk_pk[0]:.1f} ns, {clk_pk[1]:.0f} cycles a row "
         f"at {clk_pk[2]:.0f} MHz; lpc taps 9 ms "
         f"{summary(t_slpc)} | plain {s_lpc_plain:.1f} | bound {s_lpc_bound[0]:.4f} by "
-        f"{s_lpc_bound[1]}; the 8 raw reads ({n_readers} with active lanes) ms {summary(t_srr)} "
+        f"{s_lpc_bound[1]} | {clk_slpc[1]:.0f} cycles a row at {clk_slpc[2]:.0f} MHz; the 8 raw "
+        f"reads ({n_readers} with active lanes) ms {summary(t_srr)} "
         f"| bound {s_rr_bound[0]:.4f} by {s_rr_bound[1]}"
     )
     del swords, sw, s_lpc_in, reads
@@ -1418,6 +1564,86 @@ def main() -> int:
         f"{de_bound[1]} | {clk_de[0]:.1f} ns, {clk_de[1]:.0f} cycles a row at {clk_de[2]:.0f} MHz"
     )
 
+    # ---- phase 18: the LPC kernel's other bodies at full size ----
+    # Phases 5, 8 and 16 hold the order-4 body (the music is order 4
+    # throughout), phase 13 the forward order-6 body.  Here phase 4's PCM
+    # encoded at orders 4 and 8 in turn ("mix48": each warp runs both
+    # bodies), at orders 4 and 7 in turn ("general": the order-7 lanes run
+    # the general 9-tap loop), and at order 12 with every fourth packet order
+    # 31, mode 1 ("taps32": the 32-tap variant, as the decode path's retry
+    # runs it); then the forward direction on the "general" and "taps32"
+    # lanes, their decoded rows as the signal.
+    pk_o = {o: native.encode_packets(cfg, pcm, order=o) for o in (7, 8, 12)}
+    pk31 = native.encode_packets(cfg, pcm, order=31, mode=1)
+    g_lines, g_res, f_res, fwd_in = [], {}, {}, {}
+
+    def lpc_case(label, lin_g, ns_g, taps, fwd):
+        want_g, plain_g = timed(
+            lambda: lpc_kernel.lpc_fir_reference(*lin_g, F=F, taps=taps, forward=fwd))
+        err_g = lpc_diff(lpc_kernel.lpc_fir(*lin_g, F=F, taps=taps, forward=fwd), want_g, ns_g)
+        if err_g != 0:
+            raise AssertionError(f"LPC kernel ({label}, {taps} taps) differs from its plain "
+                                 f"version at B={n_pk} F={F}: {err_g}")
+        t_g = cuda_times(lambda: lpc_kernel.lpc_fir(*lin_g, F=F, taps=taps, forward=fwd),
+                         reps=LPC_REPS)
+        clk_g = walk_clock(lambda: lpc_kernel.lpc_fir(*lin_g, F=F, taps=taps, forward=fwd),
+                           walk_kernel.f_pad(F), statistics.median(t_g))
+        Lg = lin_g[2].numel()
+        b_g = bound(
+            4 * (lin_g[0].numel() + Lg * (7 + taps) + walk_kernel.f_pad(F) * Lg),
+            2 * float((lin_g[5].double() * lin_g[2].double() * (lin_g[1] == 1)).sum()),  # MACs
+        )
+        (f_res if fwd else g_res)[label] = (statistics.median(t_g), plain_g, b_g, clk_g[1])
+        orders = sorted(set(lin_g[2].tolist()))
+        g_lines.append(
+            f"{label} ({'forward, ' if fwd else ''}{taps} taps, orders {orders}, L={Lg}): "
+            f"max_abs_err {err_g}; ms {summary(t_g)} | plain {plain_g:.1f} | bound "
+            f"{b_g[0]:.4f} by {b_g[1]} | {clk_g[1]:.0f} cycles a row at {clk_g[2]:.0f} MHz"
+        )
+        return err_g, want_g
+
+    for label, packets, taps in (
+        ("mix48", [pkts[i] if i % 2 == 0 else pk_o[8][i] for i in range(n_pk)], 9),
+        ("general", [pkts[i] if i % 2 == 0 else pk_o[7][i] for i in range(n_pk)], 9),
+        ("taps32", [pk31[i] if i % 4 == 3 else pk_o[12][i] for i in range(n_pk)], 32),
+    ):
+        words_g, sizes_g = stager._stage(packets)
+        w_g = walk(cfg, words_g, sizes_g)
+        lin_g, ns_g = lanes(w_g), w_g.ns.repeat(C)
+        order_g = lin_g[2].view(-1, 32)  # the lanes of each warp
+        if label == "mix48" and not bool((order_g != order_g[:, :1]).any(dim=1).all()):
+            raise AssertionError("phase 18: a warp holds one order")
+        if label == "general" and int((lin_g[2] == 7).sum()) < lin_g[2].numel() // 4:
+            raise AssertionError("phase 18: under a quarter of the lanes at order 7")
+        err_g, want_g = lpc_case(label, lin_g, ns_g, taps, False)
+        l_err = max(l_err, err_g)
+        if label != "mix48":
+            fwd_in[label] = ((want_g[None].contiguous(), *lin_g[1:]), ns_g, taps)
+        del want_g
+    for label, (lin_f, ns_f, taps) in fwd_in.items():
+        err_f, _ = lpc_case(f"forward_{label}", lin_f, ns_f, taps, True)
+        fwd_err = max(fwd_err, err_f)
+    print(f"phase 18 {tag} lpc kernel, its other bodies vs plain at B={n_pk} F={F}, tolerance 0: "
+          + "; ".join(g_lines))
+    del pk_o, pk31, fwd_in
+
+    # ---- phase 19: one BatchDecoder on the card shared by four threads ----
+    cfg128 = dataclasses.replace(cfg, frame_length=128)
+    pcm128 = music_pcm(128 * 17 + 41, C, 8)
+    pk128 = native.encode_packets(cfg128, pcm128)
+    n_small = shared_decoder(port, cfg128, pk128, pcm128, 5, 2000)
+    n_big = shared_decoder(port, cfg, pkts, pcm, 3, 3000)
+    print(f"phase 19 one BatchDecoder(cfg) on the card, four threads at once: F=128 (18 "
+          f"packets, five slices a thread, {n_small} packets decoded) and B={n_pk} F={F} "
+          f"(phase 4's packets, three slices a thread, {n_big} packets decoded): every slice's "
+          f"bytes == source PCM, host fallbacks 0")
+
+    def case_fields(res_by_label):
+        """Phase 18's times of the LPC's other bodies, as JSON keys."""
+        return {f"{key}_{label}_F{F}": val for label, res in res_by_label.items()
+                for key, val in zip(("ms", "plain_ms", "bound_ms", "cycles_per_row"),
+                                    (res[0], res[1], res[2][0], res[3]))}
+
     kernels = [
         {
             "name": "element", "route": "cuda",
@@ -1440,8 +1666,14 @@ def main() -> int:
             "source": "saprobe_alac_tpu_torch/csrc/lpc_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/lpc_kernel.py:91",
             "launches": launches["lpc"], "max_abs_err": l_err,
-            "ms": statistics.median(t_lpc), "plain_ms": lpc_plain_ms,
+            "ms": statistics.median(t_lpc), "ms_one": statistics.median(t_lpc1),
+            "plain_ms": lpc_plain_ms,
             "bound_ms": lpc_bound[0], "bound_by": lpc_bound[1], "library_ms": None,
+            "cycles_per_row": clk_lpc[1], "sm_mhz": clk_lpc[2],
+            "ptxas": {k: v for k, v in lpc_regs.items() if "dec" in k},
+            "sass_loops": lpc_sass and {k: v for k, v in lpc_sass.items() if "dec" in k},
+            "cycles_per_row_hires": clk_hlpc[1], "cycles_per_row_L16384": clk_slpc[1],
+            **case_fields(g_res),
             f"ms_taps32_L512_F{F3}": statistics.median(t_l32),
             f"plain_ms_taps32_L512_F{F3}": plain_ms_32,
             "ms_hires": statistics.median(t_hlpc), "plain_ms_hires": h_lpc_plain_ms,
@@ -1461,8 +1693,13 @@ def main() -> int:
             "source": "saprobe_alac_tpu_torch/csrc/lpc_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/lpc_kernel.py:91 (forward=True)",
             "launches": e_launches["lpc_forward"], "max_abs_err": fwd_err,
-            "ms": statistics.median(t_fwd), "plain_ms": fwd_plain_ms,
+            "ms": statistics.median(t_fwd), "ms_one": statistics.median(t_fwd1),
+            "plain_ms": fwd_plain_ms,
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None,
+            "cycles_per_row": clk_fwd[1], "sm_mhz": clk_fwd[2],
+            "ptxas": {k: v for k, v in lpc_regs.items() if "fwd" in k},
+            **case_fields(f_res),
+            "sass_loops": lpc_sass and {k: v for k, v in lpc_sass.items() if "fwd" in k},
         },
         {
             "name": "encode", "route": "cuda",

@@ -96,20 +96,47 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _kernel_argv(name: str):
+def _kernel_argv(src: Path):
     def argv(out: Path) -> list[str]:
         return [
             _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(out), str(_CSRC / f"{name}.cu"),
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(_CSRC),
+            "-o", str(out), str(src),
         ]
 
     return argv
 
 
+def build_kernel(stem: str, src: Path) -> Path:
+    """``_build/<stem>.so`` from one kernel source (it may include the
+    shared headers of csrc/)."""
+    sources = [*(_CSRC / h for h in _HEADERS), src]
+    return build_library(stem, sources, _kernel_argv(src))
+
+
 def _load_kernel(name: str) -> ctypes.CDLL:
-    sources = [*(_CSRC / h for h in _HEADERS), _CSRC / f"{name}.cu"]
-    return ctypes.CDLL(str(build_library(f"lib{name}", sources, _kernel_argv(name))))
+    return ctypes.CDLL(str(build_kernel(f"lib{name}", _CSRC / f"{name}.cu")))
+
+
+def lpc_entry(taps: int, forward: bool) -> str:
+    return f"alac_lpc_{'fwd_' if forward else ''}launch_{taps}"
+
+
+def bind_lpc(lib: ctypes.CDLL) -> dict:
+    """The LPC library's four entry points by name (`lpc_entry`), typed."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for name in (lpc_entry(taps, fwd) for fwd in (False, True) for taps in (9, 32)):
+        fn = getattr(lib, name)
+        fn.restype = I
+        fn.argtypes = [
+            P, I, I,  # res, src_stride, src_rows
+            P, P, P, P, P, P, P, P,  # fir, order, den, cb, ns, wrap16, mode, coefs_t
+            P, I, I,  # out, F_pad, L
+            P,  # stream
+        ]
+        fns[name] = fn
+    return fns
 
 
 def build_log() -> str:
@@ -137,16 +164,6 @@ def load():
             I, I, I, I, I, I, I, I,  # B, F, F_pad, passes, kb, depth, pb, mb
             P,  # stream
         ]
-        lpc_names = [f"alac_lpc_{d}launch_{taps}" for d in ("", "fwd_") for taps in (9, 32)]
-        for name in lpc_names:
-            fn = getattr(lpc, name)
-            fn.restype = I
-            fn.argtypes = [
-                P, I, I,  # res, src_stride, src_rows
-                P, P, P, P, P, P, P, P,  # fir, order, den, cb, ns, wrap16, mode, coefs_t
-                P, I, I,  # out, F_pad, L
-                P,  # stream
-            ]
         raw.alac_raw_read_launch.restype = I
         raw.alac_raw_read_launch.argtypes = [
             P, I, P, P, P, P, P,  # words, W, base, step, width, act, n
@@ -181,6 +198,6 @@ def load():
             alac_element_launch=element.alac_element_launch,
             alac_raw_read_launch=raw.alac_raw_read_launch,
             alac_encode_launch=encode.alac_encode_launch,
-            **{name: getattr(lpc, name) for name in lpc_names},
+            **bind_lpc(lpc),
         )
         return _lib

@@ -69,8 +69,8 @@ def lpc_forward_inputs_from_jax(x, order: int, den_shift: int, cb: int, ns, coef
                                 mode: int, F: int):
     """Arguments of JAX `_lpc_forward` (x (B, F), ns (B,), coefs (B, 32);
     order 1..30) -> the port's `lpc_fir(..., forward=True)` arguments as the
-    port's `_lpc_forward` builds them: rows (1, F_pad, B), the seven lane
-    vectors, coefs (B, taps), and ``taps``."""
+    port's `_lpc_forward` builds them for a one-channel element: rows (1,
+    F_pad, B), the seven lane vectors, coefs (B, taps), and ``taps``."""
     x = np.asarray(x)
     B = x.shape[0]
     rows = np.zeros((1, f_pad(F), B), np.int32)

@@ -14,6 +14,7 @@ packet the core rejects raises the class the scalar oracle raises for it.
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -67,9 +68,12 @@ class TorchBatchDecoder:
         # kb == 0 relies on Go uint32 bit-position wrap, and absurd frame
         # lengths would blow device memory: such streams go to the host.
         self._scalar_only = config.kb == 0 or not 1 <= config.frame_length <= (1 << 16)
-        #: Packets of the last finished batch that the host path decoded.
+        #: Packets of the batch that finished last that the host path decoded.
         self.last_fallbacks = 0
-        self._pinned = None  # download buffer, reused across batches
+        # Pinned download buffers not in use: each call in flight takes one
+        # of its own, so threads that share a decoder never share a buffer.
+        self._pinned_free: list[torch.Tensor] = []
+        self._lock = threading.Lock()
 
     def _stage(self, packets: Sequence[bytes]):
         """Pack to bucketed shapes and upload: (words (B, W), size_bits (B,))
@@ -82,19 +86,27 @@ class TorchBatchDecoder:
         words = native.pack_packets(packets, rows, width)
         return torch.from_numpy(words).to(self.device), torch.from_numpy(sizes).to(self.device)
 
-    def _download(self, t: torch.Tensor) -> np.ndarray:
-        """Device -> host through one pinned buffer reused across batches: on
-        an H100 a pageable copy of a B=2048 F=4096 stereo batch (32 MiB) took
-        14 ms, a pinned one 0.65 ms.  The returned view is valid until the
-        next download, so a decoder is not to be shared between threads."""
+    def _download(self, t: torch.Tensor) -> tuple[np.ndarray, torch.Tensor | None]:
+        """Device -> host through a pinned buffer: on an H100 a pageable copy
+        of a B=2048 F=4096 stereo batch (32 MiB) took 14 ms, a pinned one
+        0.65 ms.  Returns (host view, its buffer); the view stays valid until
+        the buffer goes back through `_release`.  Buffers are reused across
+        calls, one to each call in flight, so threads may share a decoder."""
         if t.device.type == "cpu":
-            return t.numpy()
+            return t.numpy(), None
         nbytes = t.numel() * t.element_size()
-        if self._pinned is None or self._pinned.numel() < nbytes:
-            self._pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-        buf = self._pinned[:nbytes].view(t.dtype).view(t.shape)
-        buf.copy_(t)
-        return buf.numpy()
+        with self._lock:
+            buf = self._pinned_free.pop() if self._pinned_free else None
+        if buf is None or buf.numel() < nbytes:  # a free buffer too small is dropped
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        view = buf[:nbytes].view(t.dtype).view(t.shape)
+        view.copy_(t)
+        return view.numpy(), buf
+
+    def _release(self, buf: torch.Tensor | None) -> None:
+        if buf is not None:
+            with self._lock:
+                self._pinned_free.append(buf)
 
     def decode_async(self, packets: Sequence[bytes], taps: int = 9):
         """Dispatch a batch; returns device tensors (packed, err, ns, wide)
@@ -151,18 +163,23 @@ class TorchBatchDecoder:
         packed, err, ns, wide = handle
         if bool(wide[: len(packets)].any()):
             packed, err, ns, _ = self.decode_async(packets, taps=32)
-        packed = self._download(packed)
         err = err.cpu().numpy()
         ns = ns.cpu().numpy()
         fb_idx = [i for i in range(len(packets)) if err[i] != ERR_NONE]
         fb = {}
         if fb_idx:
             fb = dict(zip(fb_idx, _host_decode(self.config, [packets[i] for i in fb_idx])))
-        self.last_fallbacks = len(fb_idx)
-        return [
-            fb[i] if i in fb else self._to_bytes(packed[i], int(ns[i]))
-            for i in range(len(packets))
-        ]
+        host, buf = self._download(packed)
+        try:
+            out = [
+                fb[i] if i in fb else self._to_bytes(host[i], int(ns[i]))
+                for i in range(len(packets))
+            ]
+        finally:
+            self._release(buf)
+        with self._lock:
+            self.last_fallbacks = len(fb_idx)
+        return out
 
     def decode_packets(self, packets: Sequence[bytes]) -> list[bytes]:
         """Decode a batch to per-packet interleaved LE PCM bytes.  Raises the

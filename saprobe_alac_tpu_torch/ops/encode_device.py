@@ -3,8 +3,9 @@
 Counterpart of saprobe_alac_tpu/ops/encode_device.py.  The encode direction
 is bit-serial per packet (adaptive entropy state) and parallel across
 packets, as decode is: a forward LPC over (packet, channel) lanes produces
-residuals (`_lpc_forward`, the forward LPC kernel for orders 1..30), each
-channel's residuals are entropy-coded into a body at bit 0
+residuals (`_lpc_forward`, one forward LPC kernel launch for all the
+channels of an element, orders 1..30), each channel's residuals are
+entropy-coded into a body at bit 0
 (`_entropy_body`, the encode kernel), and plain PyTorch assembles headers,
 shift regions, bodies and the verbatim (escape) variant into packets.  On a
 CUDA tensor the two kernels run; on a CPU tensor their plain versions;
@@ -73,36 +74,47 @@ def _delta_post(res, cb):
     return torch.cat([r[:, :1], d], dim=1).to(I32)
 
 
-def _lpc_forward_args(data, order, den_shift, cb, ns, coefs, F, mode):
-    """The forward LPC kernel's inputs for one channel of orders 1..30:
-    (`lpc_fir` positional arguments, taps).  Every lane is class 1; 9 taps
-    serve orders up to 8."""
-    B = data.shape[0]
-    rows = torch.zeros((1, f_pad(F), B), dtype=I32, device=data.device)
-    rows[0, :F] = data.T
-    ones = torch.ones(B, dtype=I32, device=data.device)
+def _lpc_forward_args(chans, order, den_shift, cb, ns, coefs, F, mode):
+    """The forward LPC kernel's inputs for the channels of one element, of
+    orders 1..30: (`lpc_fir` positional arguments, taps).  Rows (nch, F_pad,
+    B), lanes channel-major (lane = c*B + b), as the decode direction reads
+    the walk's rows; every lane is class 1; 9 taps serve orders up to 8."""
+    nch, B = len(chans), chans[0].shape[0]
+    dev = chans[0].device
+    rows = torch.zeros((nch, f_pad(F), B), dtype=I32, device=dev)
+    for c, d in enumerate(chans):
+        rows[c, :F] = d.T
+    ones = torch.ones(nch * B, dtype=I32, device=dev)
     taps = 9 if order <= 8 else 32
     args = (
-        rows, ones, ones * order, ones * den_shift, ones * cb, ns.to(I32).contiguous(),
-        ones * int(order not in _INT32_ORDERS), ones * int(mode != 0), coefs[:, :taps].to(I32),
+        rows, ones, ones * order, ones * den_shift, ones * cb, ns.to(I32).repeat(nch),
+        ones * int(order not in _INT32_ORDERS), ones * int(mode != 0),
+        torch.cat([cf[:, :taps] for cf in coefs]).to(I32),
     )
     return args, taps
 
 
-def _lpc_forward(data, order, den_shift, cb, ns, coefs, F, mode):
-    """Forward LPC residuals for one channel, the mode post-pass included.
+def _lpc_forward(chans, order, den_shift, cb, ns, coefs, F, mode):
+    """Forward LPC residuals for the channels of one element, the mode
+    post-pass included: one (B, F) int32 array per channel.
 
-    data: (B, F) int32; coefs: (B, 32) int32.  Orders 1..30 run the forward
-    LPC kernel (ops/lpc_kernel.py, forward=True), which also runs the mode
-    post-pass; orders 0 and 31 have no serial recurrence and are tensor ops.
-    Rows at t >= ns are don't-care."""
+    chans: (B, F) int32 per channel; coefs: (B, 32) int32 per channel.
+    Orders 1..30 run the forward LPC kernel (ops/lpc_kernel.py,
+    forward=True) once for all the element's channels, which also runs the
+    mode post-pass; orders 0 and 31 have no serial recurrence and are tensor
+    ops.  Rows at t >= ns are don't-care."""
     if 1 <= order <= 30:
-        args, taps = _lpc_forward_args(data, order, den_shift, cb, ns, coefs, F, mode)
+        args, taps = _lpc_forward_args(chans, order, den_shift, cb, ns, coefs, F, mode)
         _note("lpc_forward", args, dict(F=F, taps=taps, forward=True))
-        return lpc_fir(*args, F=F, taps=taps, forward=True)[:F].T.contiguous()
+        res = lpc_fir(*args, F=F, taps=taps, forward=True)[:F]
+        B = chans[0].shape[0]
+        return [res[:, c * B : (c + 1) * B].T.contiguous() for c in range(len(chans))]
     # Order 0: the residuals are the samples; order 31: first differences.
-    res = data if order == 0 else _delta_post(data, cb)
-    return _delta_post(res, cb) if mode != 0 else res
+    out = []
+    for d in chans:
+        res = d if order == 0 else _delta_post(d, cb)
+        out.append(_delta_post(res, cb) if mode != 0 else res)
+    return out
 
 
 def _entropy_args(res, ns, pb_local, cb, mb):
@@ -330,10 +342,8 @@ def encode_walk(
         else:
             ch_coefs = [shared_c] * nch
         bad = torch.zeros(B, dtype=torch.bool, device=dev)
-        res_list = []
-        for d, ccoef in zip(ch_data, ch_coefs):
-            res = _lpc_forward(d, order, den_shift, cb, ns, ccoef, F, mode)
-            res_list.append(res)
+        res_list = _lpc_forward(ch_data, order, den_shift, cb, ns, ch_coefs, F, mode)
+        for res in res_list:
             if cb >= 32:
                 # A residual of INT32_MIN maps to 2^32 - 1, which the decoder
                 # wraps to 0: such a lane takes the verbatim element.

@@ -10,9 +10,12 @@ typed error, with JAX and the JAX package blocked from import.
 """
 
 import os
+import random
 import subprocess
 import sys
 import textwrap
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -23,7 +26,7 @@ from conftest import make_config, music_pcm
 from saprobe_alac_tpu.codec import decode_packet as oracle
 from saprobe_alac_tpu.encoder import ChannelSpec, EncoderSpec, encode_packets
 from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
-from saprobe_alac_tpu_torch import AlacError, BatchDecoder, ConfigError, TorchBatchDecoder
+from saprobe_alac_tpu_torch import AlacError, BatchDecoder, ConfigError, TorchBatchDecoder, native
 
 F = 256
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -85,6 +88,34 @@ def test_decode_async_round_trip():
     handle = dec.decode_async(pkts)
     assert dec.finish_async(handle, pkts) == [oracle(cfg, p)[0] for p in pkts]
     assert dec.decode_packets([]) == []
+
+
+def test_shared_decoder_concurrent_calls():
+    """One decoder called from four threads at once (the pattern of
+    tests/test_stress_concurrent.py): every slice gives the oracle's bytes,
+    and the guard on the decoder's shared state neither deadlocks nor mixes
+    the calls' results.  The card's version, where each call in flight
+    downloads through a pinned buffer of its own, is a chip_smoke.py phase."""
+    cfg = make_config(depth=16, channels=2, frame_length=64)
+    pkts = native.encode_packets(cfg, music_pcm(24 * 64 - 50, 2, 16, seed=8))
+    want = [oracle(cfg, p)[0] for p in pkts]
+    dec = BatchDecoder(cfg, "cpu")
+    barrier = threading.Barrier(4)
+
+    def worker(seed):
+        rng = random.Random(seed)
+        barrier.wait()
+        got = []
+        for _ in range(2):
+            lo = rng.randrange(0, len(pkts) - 1)
+            hi = rng.randrange(lo + 1, len(pkts) + 1)
+            got.append((lo, hi, dec.decode_packets(pkts[lo:hi])))
+        return got
+
+    with ThreadPoolExecutor(4) as pool:
+        runs = list(pool.map(worker, range(4)))
+    assert all(out == want[lo:hi] for run in runs for lo, hi, out in run)
+    assert dec.impl.last_fallbacks == 0
 
 
 def _oracle_result(cfg, packet):

@@ -341,26 +341,119 @@ def test_raw_lanes_host_match_plain(host_lib, depth):
             assert torch.equal(g, w), f"C={C} {name} differs at {torch.nonzero(g != w)[:5].tolist()}"
 
 
-@pytest.mark.parametrize("depth,bsf,taps,C", _cases((9, 1), (9, 2), (32, 1), (32, 2)))
-def test_lpc_kernel_host_matches_plain(host_lib, depth, bsf, taps, C):
-    cfg, words, sizes = _batch(C, 20 * C + taps + depth - 16, depth, bsf)
-    w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
-    assert {0, 4, 12, 30, 31} <= set(np.unique(w.order.numpy()).tolist())
-    assert (w.cb == depth - 8 * bsf + (C > 1)).any()  # compressed lanes' chan_bits
-    L = words.shape[0] * C
-    lanes = lpc_lanes(
-        w.order.T.reshape(L), w.mode.T.reshape(L), w.den.T.reshape(L),
-        w.cb.T.reshape(L), w.ns.repeat(C), w.coefs.transpose(0, 1).reshape(L, 32),
-    )
-    want = lpc_kernel.lpc_fir_reference(w.res, *lanes, F=F, taps=taps)
-    got = torch.full_like(want, SENTINEL)
-    P, F_src, S = w.res.shape
+#: The orders with a body of their own in csrc/lpc_kernel.cu, and the lanes
+#: of a warp.
+SPECIAL_ORDERS = (4, 5, 6, 8)
+GROUP = 32
+
+
+def _group_lanes(taps, kind, seed, forward):
+    """LPC kernel inputs in groups of 32 lanes (a warp each):
+    [rows (1, F_pad, L), fir, order, den, cb, ns, wrap16, mode, coefs].
+
+    "uniform": one group at each of orders 4, 5, 6 and 8 in which every lane
+    is class 1 at that order (a specialized body), then 20 lanes at order 4
+    (L not a multiple of 32: a partial last group).  "mixed": orders 4, 8,
+    5, 6 in turn (each lane its own order's body), then groups that take
+    the general loop: order 4 with one class-0 lane, order 8 with one
+    class-2 lane, order 6 with one lane of chan bits 33 (sext gives 0),
+    order 5 with one int16-wrapped lane, the orders without a body of their
+    own, then 13 lanes.  Within every group: mode 0
+    and 1, chan bits 16, 17, 24 and 32, full, partial, one-sample and empty
+    packets, den 0 to 15 and the counts 33 and -1 (sign fill), full-scale
+    32-bit noise.  The rows are music (the signal in the forward direction;
+    in decode, its forward residuals, as a stream carries them)."""
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        order = np.concatenate([np.full(GROUP, o) for o in SPECIAL_ORDERS] + [np.full(20, 4)])
+    else:
+        others = [1, 2, 3, 7, 9, 12] + ([17, 30] if taps == 32 else [])
+        groups = [np.resize([4, 8, 5, 6], GROUP)] + [np.full(GROUP, o) for o in (4, 8, 6, 5)]
+        groups.append(np.resize(others, GROUP))
+        order = np.concatenate(groups + [np.resize(others, 13)])
+    L = order.size
+    i = np.arange(L) % GROUP
+    fir = np.ones(L, np.int32)
+    cb = np.array([16, 17, 24, 32])[i % 4]
+    mode = (i // 4) % 2
+    ns = np.full(L, F)
+    ns[i == 3] = rng.integers(2, F, size=int((i == 3).sum()))
+    ns[i == 5], ns[i == 9] = 0, 1
+    den = np.array([9, 0, 15, 12])[(i // 8) % 4]
+    den[i == 13], den[i == 14] = 33, -1
+    wrap16 = (~np.isin(order, SPECIAL_ORDERS)).astype(np.int32)
+    if kind == "mixed":
+        fir[GROUP + 11] = 0
+        fir[2 * GROUP + 6], order[2 * GROUP + 6], den[2 * GROUP + 6] = 2, 1, 0
+        cb[3 * GROUP + 2] = 33
+        wrap16[4 * GROUP + 10] = 1
+    x = np.zeros((F, L), np.int64)
+    for l in range(L):
+        x[:, l] = music_pcm(F, 1, min(int(cb[l]), 24), seed=seed + l, tonality=0.9)[:, 0]
+    noisy = (cb == 32) & (i % 8 == 7)
+    x[:, noisy] = rng.integers(-(2**31), 2**31, size=(F, int(noisy.sum())))
+    coefs = np.zeros((L, 32), np.int32)
+    for l in range(L):
+        coefs[l, : order[l]] = rng.integers(-2000, 2000, size=order[l])
+    coefs[fir == 2, 0] = 1
+    rows = np.zeros((1, walk_kernel.f_pad(F), L), np.int32)
+    rows[0, :F] = x.astype(np.int32)
+    lanes = [torch.from_numpy(np.asarray(a, np.int32)) for a in
+             (rows, fir, order, den, cb, ns, wrap16, mode, coefs)]
+    # The bodies each group runs (csrc/lpc_kernel.cu `group_body`; 0 the
+    # general loop): its lanes' own when every lane has one, else 0.
+    special = (fir == 1) & np.isin(order, SPECIAL_ORDERS) & (wrap16 == 0) & (cb >= 1) & (cb <= 32)
+    bodies = [sorted(set(order[g : g + GROUP])) if special[g : g + GROUP].all() else [0]
+              for g in range(0, L, GROUP)]
+    want = ([[o] for o in order[::GROUP]] if kind == "uniform"
+            else [list(SPECIAL_ORDERS)] + [[0]] * 6)
+    assert bodies == want, f"groups run bodies {bodies}, the case wants {want}"
+    if not forward:
+        lanes[0] = lpc_kernel.lpc_fir_reference(*lanes, F=F, taps=taps, forward=True)[None]
+    return lanes
+
+
+def _host_lpc(host_lib, res, lanes, taps, forward):
+    """The LPC kernel's output as host C++, every row (F_pad, L)."""
+    P, F_src, S = res.shape
+    L = P * S
+    got = torch.full((walk_kernel.f_pad(F), L), SENTINEL, dtype=torch.int32)
     coefs_t = lanes[-1][:, :taps].T.contiguous()
-    rc = getattr(host_lib, f"alac_lpc_launch_{taps}")(
-        _ptr(w.res), S, F_src, *(_ptr(t) for t in lanes[:-1]), _ptr(coefs_t), _ptr(got),
+    rc = getattr(host_lib, f"alac_lpc_{'fwd_' if forward else ''}launch_{taps}")(
+        _ptr(res), S, F_src, *(_ptr(t) for t in lanes[:-1]), _ptr(coefs_t), _ptr(got),
         walk_kernel.f_pad(F), L, None,
     )
     assert rc == 0
+    return got
+
+
+GROUP_KINDS = ("uniform", "mixed")
+
+
+@pytest.mark.parametrize(
+    "depth,bsf,taps,C",
+    _cases((9, 1), (9, 2), (32, 1), (32, 2))
+    + [pytest.param(None, None, taps, kind, id=f"{taps}-{kind}")
+       for taps in (9, 32) for kind in GROUP_KINDS],
+)
+def test_lpc_kernel_host_matches_plain(host_lib, depth, bsf, taps, C):
+    """Decode direction.  C: the channels of a walked batch of mixed orders,
+    or the kind of synthetic 32-lane groups (`_group_lanes`): the
+    order-specialized bodies and the general loop beside them."""
+    if isinstance(C, str):
+        res, *lanes = _group_lanes(taps, C, 700 + taps + 10 * GROUP_KINDS.index(C), False)
+    else:
+        cfg, words, sizes = _batch(C, 20 * C + taps + depth - 16, depth, bsf)
+        w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
+        assert {0, 4, 12, 30, 31} <= set(np.unique(w.order.numpy()).tolist())
+        assert (w.cb == depth - 8 * bsf + (C > 1)).any()  # compressed lanes' chan_bits
+        L = words.shape[0] * C
+        res, lanes = w.res, lpc_lanes(
+            w.order.T.reshape(L), w.mode.T.reshape(L), w.den.T.reshape(L),
+            w.cb.T.reshape(L), w.ns.repeat(C), w.coefs.transpose(0, 1).reshape(L, 32),
+        )
+    want = lpc_kernel.lpc_fir_reference(res, *lanes, F=F, taps=taps)
+    got = _host_lpc(host_lib, res, lanes, taps, False)
     assert torch.equal(got, want), f"differs at {torch.nonzero(got != want)[:5].tolist()}"
 
 
@@ -425,19 +518,21 @@ def _forward_lanes(taps, seed):
     return [torch.from_numpy(a) for a in (rows, fir, order, den, cb, ns, wrap16, mode, coefs)]
 
 
-@pytest.mark.parametrize("taps", [9, 32])
-def test_lpc_forward_kernel_host_matches_plain(host_lib, taps):
-    lanes = _forward_lanes(taps, 300 + taps)
+@pytest.mark.parametrize(
+    "taps,groups",
+    [pytest.param(9, None, id="9"), pytest.param(32, None, id="32")]
+    + [pytest.param(taps, kind, id=f"{taps}-{kind}") for taps in (9, 32) for kind in GROUP_KINDS],
+)
+def test_lpc_forward_kernel_host_matches_plain(host_lib, taps, groups):
+    """Forward direction: one regime per group of 8 lanes (`_forward_lanes`),
+    or synthetic 32-lane groups (`_group_lanes`)."""
+    if groups is None:
+        lanes = _forward_lanes(taps, 300 + taps)
+    else:
+        lanes = _group_lanes(taps, groups, 800 + taps + 10 * GROUP_KINDS.index(groups), True)
     want = lpc_kernel.lpc_fir_reference(*lanes, F=F, taps=taps, forward=True)
-    got = torch.full_like(want, SENTINEL)
     rows = lanes[0]
-    L = rows.shape[2]
-    coefs_t = lanes[-1][:, :taps].T.contiguous()
-    rc = getattr(host_lib, f"alac_lpc_fwd_launch_{taps}")(
-        _ptr(rows), L, rows.shape[1], *(_ptr(t) for t in lanes[1:-1]), _ptr(coefs_t), _ptr(got),
-        walk_kernel.f_pad(F), L, None,
-    )
-    assert rc == 0
+    got = _host_lpc(host_lib, rows, lanes[1:], taps, True)
     assert (want[:F] != rows[0, :F]).any()  # residuals, not the signal passed through
     assert torch.equal(got, want), f"differs at {torch.nonzero(got != want)[:5].tolist()}"
 

@@ -323,10 +323,12 @@ def test_an_overflowed_lane_raises(monkeypatch):
         port.encode_packets_device(cfg, port.EncoderSpec(), pcms, device="cpu")
 
 
-@pytest.mark.parametrize("order,fwd_calls", [(4, 2), (0, 0)])
-def test_collected_calls_are_what_the_kernels_were_given(monkeypatch, order, fwd_calls):
+@pytest.mark.parametrize("order,fwd_channels", [(4, 2), (0, 0)])
+def test_collected_calls_are_what_the_kernels_were_given(monkeypatch, order, fwd_channels):
     """`_calls` holds each kernel's arguments as the path built them: run
-    again on their own they give the bodies the packets hold."""
+    again on their own they give the bodies the packets hold.  A stereo
+    element's forward LPC is one launch over both channels' lanes (none at
+    order 0)."""
     from saprobe_alac_tpu_torch.ops import encode_kernel, lpc_kernel
 
     cfg = make_config(depth=16, channels=2, frame_length=64)
@@ -335,19 +337,45 @@ def test_collected_calls_are_what_the_kernels_were_given(monkeypatch, order, fwd
     monkeypatch.setattr(ted, "_calls", [])
     pkts = port.encode_packets_device(cfg, spec, pcms, device="cpu")
     names = [name for name, _, _ in ted._calls]
-    assert names == ["encode_walk"] + ["lpc_forward"] * fwd_calls + ["encode"] * 2
+    assert names == ["encode_walk"] + ["lpc_forward"] * (fwd_channels > 0) + ["encode"] * 2
     by = {n: [(a, kw) for m, a, kw in ted._calls if m == n] for n in set(names)}
     words, bits, ovf = ted.encode_walk(*by["encode_walk"][0][0], **by["encode_walk"][0][1])
     assert not ovf.any()
     assert [len(p) for p in pkts] == [(int(b) + 7) // 8 for b in bits[:3]]
-    for (fa, fkw), (ea, ekw) in zip(by.get("lpc_forward", []), by["encode"]):
+    for fa, fkw in by.get("lpc_forward", []):
         r = lpc_kernel.lpc_fir(*fa, **fkw)[: cfg.frame_length].to(torch.int64)
         zigzag = torch.where(r >= 0, 2 * r, -2 * r - 1).to(torch.int32)
-        assert torch.equal(zigzag[:, :3], ea[0][:, :3])  # channel i's residuals feed body i
+        B = by["encode"][0][0][0].shape[1]
+        assert zigzag.shape[1] == fwd_channels * B
+        for i, (ea, _) in enumerate(by["encode"]):  # channel i's lanes feed body i
+            assert torch.equal(zigzag[:, i * B : i * B + 3], ea[0][:, :3])
     for ea, ekw in by["encode"]:
         assert (encode_kernel.dense_encode(*ea, **ekw)[1][:3] > 0).all()
     monkeypatch.setattr(ted, "_calls", None)
     port.encode_packets_device(cfg, spec, pcms, device="cpu")  # collects nothing, and works
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 6, 8])
+def test_one_forward_lpc_launch_per_element(monkeypatch, jax_impl, channels):
+    """In every layout the forward LPC runs once per element, over all of
+    its channels' lanes (channel-major), not once per channel; the packets
+    equal the JAX package's and the C++ host encoder's with pinned
+    coefficients."""
+    from saprobe_alac_tpu_torch.encoder.spec import element_layout
+
+    cfg = make_config(depth=16, channels=channels, frame_length=64)
+    spec = spec_for(4, mix_res=1)
+    pcms = [music_pcm(64, channels, 16, seed=80 + channels), music_pcm(41, channels, 16, seed=3)]
+    monkeypatch.setattr(ted, "_calls", [])
+    got = port.encode_packets_device(cfg, encoder_spec_from_jax(spec), pcms, device="cpu")
+    fwd = [args for name, args, _ in ted._calls if name == "lpc_forward"]
+    widths = element_layout(channels)
+    assert [a[0].shape[0] for a in fwd] == widths  # one launch an element, its channels' rows
+    assert [a[1].numel() for a in fwd] == [w * a[0].shape[2] for w, a in zip(widths, fwd)]
+    assert got == ed.encode_packets_device(cfg, spec, pcms)
+    assert got == native.encode_with_spec(cfg, encoder_spec_from_jax(spec), pcms)
+    for pkt, pcm in zip(got, pcms):
+        assert oracle(cfg, pkt)[0] == expected_pcm_bytes(pcm, cfg.bit_depth)
 
 
 @pytest.mark.parametrize("case", ["elements", "pb_candidates", "wide_coefs"])

@@ -4,9 +4,10 @@ The same signal rows, made from a seed with numpy, go through the JAX
 package's forward LPC kernel in interpret mode (`lpc_fir_pallas(...,
 forward=True, interpret=True)`) and its XLA scan (`_lpc_forward` with
 enc_impl="xla"), and through the port's `lpc_fir(..., forward=True)` and
-`_lpc_forward` on CPU tensors.  Tolerance 0 (integer code).  Against the
-kernel every row is compared; against the XLA scan rows t < ns, since past a
-packet's end the scan leaves what the caller never reads.
+`_lpc_forward` (both channels of a pair in one call) on CPU tensors.
+Tolerance 0 (integer code).  Against the kernel every row is compared;
+against the XLA scan rows t < ns, since past a packet's end the scan leaves
+what the caller never reads.
 """
 
 import numpy as np
@@ -63,15 +64,22 @@ def test_forward_kernel_matches_jax_interpret(order, mode, cb):
 @pytest.mark.parametrize("order", [0, 1, 4, 8, 9, 12, 30, 31])
 def test_lpc_forward_matches_jax_xla(order, mode, cb):
     """`_lpc_forward` of both packages: orders 0 and 31 (tensor ops), 1..30
-    (the kernel's plain version against the XLA scan)."""
-    x, ns, coefs, rng = _signal(cb, 7 * order + cb)
-    coefs[:, :order] = rng.integers(-2000, 2000, size=(B, min(order, 32)))
-    want = jed._lpc_forward(
-        jnp.asarray(x), order, 9, cb, jnp.asarray(ns), jnp.asarray(coefs), F, mode, "xla"
-    )
+    (the kernel's plain version against the XLA scan).  The port's takes
+    the two channels of a pair at once (one kernel launch for 1..30); the
+    JAX package's, one channel a call."""
+    chans = []
+    for c in range(2):
+        x, ns, coefs, rng = _signal(cb, 7 * order + cb + 1000 * c)
+        coefs[:, :order] = rng.integers(-2000, 2000, size=(B, min(order, 32)))
+        chans.append((x, coefs))
     got = ted._lpc_forward(
-        torch.from_numpy(x), order, 9, cb, torch.from_numpy(ns), torch.from_numpy(coefs), F, mode
+        [torch.from_numpy(x) for x, _ in chans], order, 9, cb, torch.from_numpy(ns),
+        [torch.from_numpy(cf) for _, cf in chans], F, mode,
     )
     valid = np.arange(F)[None, :] < ns[:, None]
-    assert valid.sum() > B * F // 2
-    assert np.array_equal(np.where(valid, got.numpy(), 0), np.where(valid, np.asarray(want), 0))
+    assert valid.sum() > B * F // 2 and len(got) == 2
+    for (x, coefs), g in zip(chans, got):
+        want = jed._lpc_forward(
+            jnp.asarray(x), order, 9, cb, jnp.asarray(ns), jnp.asarray(coefs), F, mode, "xla"
+        )
+        assert np.array_equal(np.where(valid, g.numpy(), 0), np.where(valid, np.asarray(want), 0))
