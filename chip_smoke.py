@@ -7,9 +7,11 @@ Run from the repository root on a machine with one CUDA card:
 Phases, one line each (any failure raises and exits non-zero):
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
   2. build of the CUDA kernels (csrc/, nvcc) and of the C++ host core
-     (native/, g++); the three walk kernels' and the LPC kernel's four
-     instantiations' registers, stack and spills as ptxas reports them, and
-     the instructions of each LPC row loop (SASS, cuobjdump);
+     (native/, g++); the three walk kernels', the LPC kernel's four
+     instantiations', the encode kernel's and the raw reader's registers,
+     stack and spills as ptxas reports them, the instructions of each LPC
+     row loop and of the encode kernel's sample loop, and the encode and raw
+     reader kernels' instructions (SASS, cuobjdump);
   3. the element and LPC kernels against their plain PyTorch versions on
      the card, B=256 packets of F=512, 16-bit stereo, tolerance 0 (integer
      code): music, a partial final packet, near-white noise (escape
@@ -38,9 +40,9 @@ Phases, one line each (any failure raises and exits non-zero):
   7. the hi-res decode path at full size: B=2048 packets of F=4096 96 kHz
      24-bit stereo music with bytesShifted=1 (87.4 s of audio) through
      BatchDecoder(cfg) on the default device, bytes equal to the source as
-     3-byte samples, one packet walk, one LPC and two raw reader launches
-     and no element launch, no host fallback; decode_packets timed as in
-     phase 4;
+     3-byte samples, one packet walk, one LPC and one raw reader launch
+     (every channel's lanes) and no element launch, no host fallback;
+     decode_packets timed as in phase 4;
   8. the packet, LPC and raw reader kernels against their plain versions at
      the shapes phase 7 gave them, tolerance 0; their times by CUDA events beside their bounds
      and the plain versions' times, the LPC's SM cycles a row; the raw
@@ -57,13 +59,14 @@ Phases, one line each (any failure raises and exits non-zero):
      (32 taps, one call), a partial packet, ns == 0, near-white noise at
      chan bits 17 and 32 (escape suffixes of 32 bits), sparse lanes (long
      zero runs) and an all-zero lane; the encode kernel at kb 14 (both
-     widths in one call) and at kb 28;
+     widths in one call) and at kb 28, and one launch for two channels under
+     pbFactor candidates 2, 4 and 7 (a row map, as encode_walk makes it);
  12. the encode path at full size: encode_packets_device(cfg, spec, pcms)
      on the default device for the B=2048 packets of phase 4's 44.1 kHz
      16-bit stereo PCM with EncoderSpec(channel=ChannelSpec(order=6,
      fit=True)); the packets through BatchDecoder(cfg) on the card: bytes
-     equal to the source, no host fallback; one forward LPC launch for the
-     pair's two channels and the encode launches above zero; total packet
+     equal to the source, no host fallback; one forward LPC launch and one
+     encode launch for the pair's two channels; total packet
      bytes within 2% of the C++ host
      encoder's; both encoders timed by the host clock (x realtime); one
      call under torch.profiler for the card's busy time and top kernels.  Then
@@ -72,13 +75,11 @@ Phases, one line each (any failure raises and exits non-zero):
      equal the C++ host encoder's;
  13. both encode-side kernels against their plain versions on the inputs of
      every launch of one more such call (collected by the path itself: one
-     forward LPC launch of L=4096 lanes and two encode launches of 2048),
-     tolerance 0, no
-     lane overflowing its row: each kernel launched on each launch's own
-     inputs, its plain version run once over the lanes of all of them side
-     by side; kernel times by CUDA events (median of warm runs) beside
-     their bounds, each plain version's one run, the forward LPC's SM
-     cycles a row;
+     forward LPC launch and one encode launch, each of L=4096 lanes),
+     tolerance 0, no lane overflowing its row; kernel times by CUDA events
+     (median of warm runs) beside their bounds, each plain version's one
+     run, the forward LPC's SM cycles a row and the encode kernel's a
+     sample;
      encode_walk alone (the device part of the call) on the call's own
      arguments, by CUDA events.
  14. the packet kernel (every element of a packet in one launch) against
@@ -91,14 +92,14 @@ Phases, one line each (any failure raises and exits non-zero):
  15. the multi-slot decode path at full width: B=2048 packets of F=4096
      48 kHz 24-bit 7.1 surround (SCE CPE CPE CPE SCE) with bytesShifted=1
      (174.8 s of audio) through BatchDecoder(cfg) on the default device,
-     bytes equal to the source, one packet and one LPC launch and the raw
-     reads, no host fallback; decode_packets timed as in phase 4; one call
+     bytes equal to the source, one packet, one LPC and one raw read
+     launch, no host fallback; decode_packets timed as in phase 4; one call
      under torch.profiler (the card's busy time, its top kernels) and one
      with every stage synchronised and timed by the host clock;
  16. at phase 15's shapes, on its batch: the packet kernel against its
      plain version (five elements a packet: eight passes of 4096 rows of op
      launches, minutes), every output on every lane; the LPC kernel at
-     L=16,384 lanes and the eight raw reads against their plain versions,
+     L=16,384 lanes and the raw read (L=16,384) against their plain versions,
      tolerance 0; their times by CUDA events beside their bounds, the LPC's
      SM cycles a row;
  17. the dense entropy kernel (the walk alone, no parse) on its probe path:
@@ -306,21 +307,23 @@ def ptxas_report(log: str, kernels: dict) -> dict:
     return out
 
 
-def sass_loops(so_path, kernels: dict):
-    """The loops of each named kernel in the library's SASS (cuobjdump):
-    {label: [instructions in each loop, from a backward branch to its
-    target, smallest first]}, or None without cuobjdump."""
+def sass(so_path, kernels: dict):
+    """Each named kernel's SASS in the library (cuobjdump, read once):
+    {label: (its instructions, NOPs left out; the instructions in each
+    loop, from a backward branch to its target, smallest first)}, or None
+    without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
     text = subprocess.run([tool, "-sass", str(so_path)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    out, cur, labels, branches = {}, None, {}, []
+    out, cur, code, labels, branches = {}, None, [], {}, []
 
     def close():
         if cur is not None:
             loops = [(labels.get(t, t), a) for t, a in branches]
-            out[cur] = sorted((a - t) // 16 + 1 for t, a in loops if isinstance(t, int) and t <= a)
+            out[cur] = (code, sorted((a - t) // 16 + 1 for t, a in loops
+                                     if isinstance(t, int) and t <= a))
 
     pending = []
     for ln in text.splitlines():
@@ -328,7 +331,7 @@ def sass_loops(so_path, kernels: dict):
         if m:
             close()
             cur = next((k for k, sub in kernels.items() if sub in m.group(1)), None)
-            labels, branches, pending = {}, [], []
+            code, labels, branches, pending = [], {}, [], []
             continue
         m = re.match(r"\s*(\.L_x_\d+):", ln)
         if m:
@@ -337,15 +340,27 @@ def sass_loops(so_path, kernels: dict):
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
         if not m or cur is None:
             continue
-        addr = int(m.group(1), 16)
+        addr, op = int(m.group(1), 16), m.group(2).strip()
+        if not op.startswith("NOP"):
+            code.append(op)
         for lab in pending:
             labels[lab] = addr
         pending = []
-        b = re.search(r"\bBRA\b[^`(]*(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", m.group(2))
+        b = re.search(r"\bBRA\b[^`(]*(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", op)
         if b:
             branches.append((b.group(1) or int(b.group(2), 16), addr))
     close()
     return out
+
+
+#: The encode and raw reader kernels, for phase 2's ptxas and SASS counts.
+ENCODE_KERNELS = {"encode": "encode_kernel"}
+RAW_KERNELS = {"raw_read": "raw_reader_kernel"}
+
+
+#: The opcodes of the card's integer divide sequence (a float reciprocal
+#: estimate of the divisor): none may appear in the encode kernel.
+DIVIDE_OPS = ("MUFU.RCP", "I2F.U32.RP")
 
 
 def walk_clock(fn, rows, ms):
@@ -448,11 +463,31 @@ def main() -> int:
     walk_regs = ptxas_report(_build.build_log(), WALK_KERNELS)
     print(f"phase 2 walk kernels (ptxas): {walk_regs}")
     lpc_regs = ptxas_report(_build.build_log(), LPC_KERNELS)
-    lpc_sass = sass_loops(_build._OUT / "liblpc_kernel.so", LPC_KERNELS)
+    lpc_listing = sass(_build._OUT / "liblpc_kernel.so", LPC_KERNELS)
+    lpc_sass = lpc_listing and {k: loops for k, (_, loops) in lpc_listing.items()}
     print(
         f"phase 2 lpc kernel (ptxas): {lpc_regs}; SASS instructions in each loop (rows a trip: "
         f"8 in every 9-tap body and each order's body at 32 taps, 1 in the 32-tap general "
         f"loop): {lpc_sass if lpc_sass is not None else 'not measured (no cuobjdump)'}"
+    )
+
+    er_regs = ptxas_report(_build.build_log(), {**ENCODE_KERNELS, **RAW_KERNELS})
+    er_listing = {
+        label: (sass(_build._OUT / f"lib{sub}.so", kernels) or {}).get(label, (None, None))
+        for kernels in (ENCODE_KERNELS, RAW_KERNELS) for label, sub in kernels.items()
+    }
+    er_sass = {label: code and len(code) for label, (code, _) in er_listing.items()}
+    enc_code, enc_loops = er_listing["encode"]
+    divides = None if enc_code is None else sum(
+        any(d in op for d in DIVIDE_OPS) for op in enc_code)
+    if divides:
+        raise AssertionError(f"the encode kernel's SASS holds {divides} divide instructions")
+    print(
+        f"phase 2 encode and raw reader kernels (ptxas): {er_regs}; SASS instructions (NOPs "
+        f"left out) {er_sass}; the encode kernel's loops {enc_loops} (a trip of its sample "
+        f"loop codes kAhead samples; the raw reader has no loop, each thread reads kRows "
+        f"rows); divide instructions ({', '.join(DIVIDE_OPS)}) in the encode kernel: "
+        f"{'not measured (no cuobjdump)' if divides is None else divides}"
     )
 
     cfg = port.PacketConfig(
@@ -679,8 +714,9 @@ def main() -> int:
         )
 
     def hires_inputs(c, packets):
-        """The words, the walk and the raw reader's lane inputs as the decode
-        path builds them (walk, then epilogue.shift_reads)."""
+        """The words, the walk and the raw reader's inputs as the decode path
+        builds them (walk, then epilogue.shift_reads: every channel's lanes
+        and the row map)."""
         words, sizes = TorchBatchDecoder(c, dev)._stage(packets)
         w = walk(c, words, sizes)
         return words, sizes, w, shift_reads(w.shift_base, w.bs, w.role, w.ns)
@@ -705,8 +741,8 @@ def main() -> int:
         if shifted < 200 or not (w.esc == 1).any():
             raise AssertionError(f"{depth}-bit C={ch}: {shifted} shifted lanes, or no escapes")
         for signed in (False, True):
-            a = raw_read(words, *args, F=F6, signed=signed)
-            b = raw_read_reference(words, *args, F=F6, signed=signed)
+            a = raw_read(words, *args[:5], F=F6, signed=signed, row=args[5])
+            b = raw_read_reference(words, *args[:5], F=F6, signed=signed, row=args[5])
             r_err = max(r_err, amax((a - b).abs()))
         if r_err != 0:
             raise AssertionError(f"{depth}-bit C={ch}: raw reader differs from its plain version")
@@ -739,12 +775,12 @@ def main() -> int:
     hout = hdec.decode_packets(hpkts)
     h_launches = port.launch_counts()
     check_decode(hout, hpcm, 24)
-    # One raw read per channel: the pair's fused read, and channel 1's own,
-    # which no lane of a pair reads for.
+    # One raw read for every channel (the pair's fused read on channel 0's
+    # lanes; channel 1's lanes, which no pair reads for, inactive).
     if (h_launches["packet"], h_launches["lpc"], h_launches["raw_read"],
-            h_launches["element"]) != (1, 1, 2, 0):
+            h_launches["element"]) != (1, 1, 1, 0):
         raise AssertionError(f"hi-res path: launches {h_launches}, want 1 packet, 1 lpc, "
-                             "2 raw reads, 0 element")
+                             "1 raw read, 0 element")
     if hdec.impl.last_fallbacks:
         raise AssertionError(f"{hdec.impl.last_fallbacks} clean hi-res packets fell back")
     h_audio_s = total / hcfg.sample_rate
@@ -765,8 +801,11 @@ def main() -> int:
     hwords, hsizes, hw, hargs = hires_inputs(hcfg, hpkts)
     e8, l8, pk_plain_h, h_lpc_plain_ms, _ = check_walk_lpc(hcfg, hwords, hsizes, hw, "packet")
     pw_err, l_err = max(pw_err, e8), max(l_err, l8)
-    want = raw_read_reference(hwords, *hargs, F=F)
-    r_err = max(r_err, amax((raw_read(hwords, *hargs, F=F) - want).abs()))
+    def hread():
+        return raw_read(hwords, *hargs[:5], F=F, row=hargs[5])
+
+    want = raw_read_reference(hwords, *hargs[:5], F=F, row=hargs[5])
+    r_err = max(r_err, amax((hread() - want).abs()))
     if r_err != 0:
         raise AssertionError(f"raw reader differs from its plain version at B={n_pk}: {r_err}")
     h_e_args, h_lpc_in = element_args(hwords, hsizes), lanes(hw)
@@ -788,19 +827,25 @@ def main() -> int:
 
     def cold_read():
         flush.zero_()
-        return timed(lambda: raw_read(hwords, *hargs, F=F))[1]
+        return timed(hread)[1]
 
     cold_read()
     t_rr = [cold_read() for _ in range(RUNS)]
     del flush
-    t_rr_warm = cuda_times(lambda: raw_read(hwords, *hargs, F=F), reps=20)
-    t_rr_plain = cuda_times(lambda: raw_read_reference(hwords, *hargs, F=F))
-    base, step, _, act, n = hargs
-    fields = torch.where(act != 0, n, 0).double()
-    rr_bound = bound(
-        float((fields * step.double()).sum()) / 8 + 4 * n_pk * 5 + 4 * want.numel(),
-        4 * float(fields.sum()),  # two shifts, an or, a shift per field
-    )
+    t_rr_warm = cuda_times(hread, reps=20)
+    t_rr_plain = cuda_times(lambda: raw_read_reference(hwords, *hargs[:5], F=F, row=hargs[5]))
+
+    def raw_bound(args, out):
+        """Bytes: each lane's fields (n rows of step bits) read once, its six
+        inputs and the output plane once; operations: two shifts, an or
+        and a shift a field."""
+        step, act, n = args[1], args[3], args[4]
+        fields = torch.where(act != 0, n, 0).double()
+        return bound(float((fields * step.double()).sum()) / 8 + 4 * 6 * act.numel()
+                     + 4 * out.numel(), 4 * float(fields.sum()))
+
+    rr_bound = raw_bound(hargs, want)
+    hreaders = int(hargs[3].view(2, -1).any(dim=1).sum())
     print(
         f"phase 8 {tag} kernels vs plain at B={n_pk} F={F} 24-bit stereo bytesShifted=1, "
         f"tolerance 0: max_abs_err packet {pw_err}, lpc {l_err}, raw reader {r_err}; "
@@ -809,8 +854,9 @@ def main() -> int:
         f"{clk_pkh[2]:.0f} MHz; element (not on the path) ms {summary(t_hel)} | bound "
         f"{h_el_bound[0]:.4f} by {h_el_bound[1]}; lpc taps 9 ms {summary(t_hlpc)} | plain "
         f"{h_lpc_plain_ms:.1f} | bound {h_lpc_bound[0]:.4f} by {h_lpc_bound[1]} | "
-        f"{clk_hlpc[1]:.0f} cycles a row at {clk_hlpc[2]:.0f} MHz; raw reader "
-        f"(the pair as one {int(step[0])}-bit field) ms cold {summary(t_rr)} | warm "
+        f"{clk_hlpc[1]:.0f} cycles a row at {clk_hlpc[2]:.0f} MHz; raw reader (one launch, "
+        f"L={hargs[0].numel()} lanes of 2 channels, {hreaders} with active lanes; the pair as "
+        f"one {int(hargs[1][0])}-bit field) ms cold {summary(t_rr)} | warm "
         f"{summary(t_rr_warm)} (20 launches per sample) | plain {summary(t_rr_plain)} | "
         f"bound {rr_bound[0]:.4f} by {rr_bound[1]}"
     )
@@ -915,7 +961,8 @@ def main() -> int:
         res, ms, err = lpc_forward_check(args, dict(F=F11, taps=taps, forward=True))
         fwd_err = max(fwd_err, err)
         for i, (_, cb, ns11) in enumerate(sets):
-            res_by_cb.setdefault(cb, (res[:, 256 * i : 256 * (i + 1)].T.contiguous(), ns11))
+            res_by_cb.setdefault(cb, []).append((res[:, 256 * i : 256 * (i + 1)].T.contiguous(),
+                                                 ns11))
         f_lines.append(
             f"taps {taps}: " + " and ".join(f"order {o} mode {m} cb {c}" for o, m, c in regimes)
             + f" (L=512, plain {ms:.0f} ms)"
@@ -923,7 +970,7 @@ def main() -> int:
     pb_local = torch.full((256,), cfg.pb, dtype=i32, device=dev)
 
     def entropy_inputs(cb):
-        res, ns11 = res_by_cb[cb]
+        res, ns11 = res_by_cb[cb][0]
         return encode_device._entropy_args(res, ns11, pb_local, cb, cfg.mb)
 
     e_lines = []
@@ -948,6 +995,23 @@ def main() -> int:
                 f"lanes {noise_bits}+ bits"
             )
         e_lines[-1] += f" (B={256 * len(cbs)}, plain {ms:.0f} ms)"
+    # One launch for an element's two channels (orders 4 and 6, chan bits
+    # 17) under pbFactor candidates 2, 4 and 7, as encode_walk makes it:
+    # lanes candidate-major, each reading its channel's row by the row map.
+    pair = [r for r, _ in res_by_cb[17][:2]]
+    ns_pair = res_by_cb[17][0][1].to(i64)
+    cand_pb = [torch.full((256,), (cfg.pb * p) // 4, dtype=i64, device=dev) for p in (2, 4, 7)]
+    c_args, c_row = encode_device._element_entropy_args(pair, ns_pair, cand_pb, 17, cfg.mb)
+    c_bits, c_ovf, c_ms, c_err = encode_check(
+        c_args, dict(kb=14, F=F11, W_out=body_words(14, 17), row=c_row))
+    enc_err = max(enc_err, c_err)
+    per_cand = c_bits.view(3, 512).sum(dim=1)
+    if int(c_ovf.sum()) != 0 or len(set(per_cand.tolist())) != 3:
+        raise AssertionError(f"phase 11 candidates: ovf or equal sizes {per_cand.tolist()}")
+    e_lines.append(
+        f"pbFactor candidates 2, 4, 7 over two channels in one launch (L={c_row.numel()}, row "
+        f"map): {[int(b) // 8 for b in per_cand]} bytes (plain {c_ms:.0f} ms)"
+    )
     print(
         f"phase 11 forward lpc and encode kernels vs plain (256 lanes a regime, F={F11}, "
         f"tolerance 0): max_abs_err forward lpc {fwd_err}, encode {enc_err}; forward lpc "
@@ -983,10 +1047,11 @@ def main() -> int:
     fit_spec = port.EncoderSpec(channel=port.ChannelSpec(order=6, fit=True))
     chunks16 = [pcm[i : i + F] for i in range(0, len(pcm), F)]
     epk, e_launches, host_pk, first_s, host_enc_s = encode_and_check(cfg, fit_spec, pcm, "16-bit")
-    # One CPE a packet: the forward LPC runs once for both channels.
-    if e_launches["lpc_forward"] != 1:
-        raise AssertionError(f"16-bit stereo encode: {e_launches['lpc_forward']} forward LPC "
-                             "launches, want one for the element's two channels")
+    # One CPE a packet: the forward LPC and the encode kernel run once each
+    # for both channels.
+    if (e_launches["lpc_forward"], e_launches["encode"]) != (1, 1):
+        raise AssertionError(f"16-bit stereo encode: launches {e_launches}, want one forward "
+                             "LPC and one encode for the element's two channels")
     enc_host = host_times(lambda: port.encode_packets_device(cfg, fit_spec, chunks16), runs=3)
     enc_med = statistics.median(enc_host)
     n_dev, n_host = sum(map(len, epk)), sum(map(len, host_pk))
@@ -1061,10 +1126,10 @@ def main() -> int:
     # row whatever the lane count: each runs once, over the lanes of all the
     # call's launches side by side, and is held against the outputs of the
     # kernel launched on each launch's own inputs.
-    for name in ("lpc_forward", "encode"):
-        if any(kw != by[name][0][1] for _, kw in by[name]):
-            raise AssertionError(f"the call's {name} launches differ in their settings")
-    f_kw, e_kw = by["lpc_forward"][0][1], by["encode"][0][1]
+    if any(kw != by["lpc_forward"][0][1] for _, kw in by["lpc_forward"]):
+        raise AssertionError("the call's lpc_forward launches differ in their settings")
+    f_kw = by["lpc_forward"][0][1]
+    (e_args, e_kw), = by["encode"]  # phase 12 checked the call makes one
     got = torch.cat([lpc_kernel.lpc_fir(*a, **f_kw) for a, _ in by["lpc_forward"]], dim=1)
     f_all = side_by_side([a for a, _ in by["lpc_forward"]], LPC_LANE_AXES)
     want, fwd_plain_ms = timed(lambda: lpc_kernel.lpc_fir_reference(*f_all, **f_kw))
@@ -1083,30 +1148,31 @@ def main() -> int:
             4 * (2 * rows.numel() + 7 * order13.numel() + coefs13.numel()),  # rows in and out
             2 * float((order13.double() * ns_f.double()).sum()),  # MACs of the prediction
         ))
-    outs = [encode_kernel.dense_encode(*a, **e_kw) for a, _ in by["encode"]]
-    got = [torch.cat(parts, dim=0) for parts in zip(*outs)]
-    e_all = side_by_side([a for a, _ in by["encode"]], ENCODE_LANE_AXES)
-    want, enc_plain_ms = timed(lambda: encode_kernel.dense_encode_reference(*e_all, **e_kw))
+    got = encode_kernel.dense_encode(*e_args, **e_kw)
+    want, enc_plain_ms = timed(lambda: encode_kernel.dense_encode_reference(*e_args, **e_kw))
     for name, a, b in zip(("words", "bits", "ovf"), got, want):
         err = amax((a.to(i64) - b.to(i64)).abs())
         if err != 0:
-            raise AssertionError(f"encode kernel on the call's launches: {name} differs from "
+            raise AssertionError(f"encode kernel on the call's launch: {name} differs from "
                                  f"the plain version by up to {err}")
     if int(got[2].sum()) != 0:
         raise AssertionError(f"{int(got[2].sum())} lanes overflowed their row")
     body_bytes = int(got[1].sum()) // 8
-    del outs, got, want, e_all
-    t_enc, enc_bounds = [], []
-    for e_args, _ in by["encode"]:
-        t_enc += cuda_times(lambda: encode_kernel.dense_encode(*e_args, **e_kw))
-        lanes13 = e_args[5].numel()
-        enc_bounds.append(bound(
-            # rows in, zero-tailed rows out
-            4 * (e_args[0].numel() + e_args[1].numel() + 5 * lanes13
-                 + lanes13 * e_kw["W_out"] + 2 * lanes13),
-            16 * float(e_args[5].sum()),  # a Rice code: clz, divide, shifts, mean update
-        ))
-    fwd_bound, enc_bound = max(fwd_bounds), max(enc_bounds)
+    del got, want
+    t_enc = cuda_times(lambda: encode_kernel.dense_encode(*e_args, **e_kw))
+    clk_enc = walk_clock(lambda: encode_kernel.dense_encode(*e_args, **e_kw), F,
+                         statistics.median(t_enc))
+    lanes13 = e_args[5].numel()
+    enc_bound = bound(
+        # n_t in, the lane inputs and the row map, zero-tailed rows out.  The
+        # kernel reads zr_t only where it codes a zero run (a mean below
+        # 128, rare in music), and the plain version does not report how
+        # often that is: those reads are left out, so the bound is low by at
+        # most 4 bytes a zero run.
+        4 * (e_args[0].numel() + 6 * lanes13 + lanes13 * e_kw["W_out"] + 2 * lanes13),
+        16 * float(e_args[5].sum()),  # a Rice code: clz, quotient, shifts, mean update
+    )
+    fwd_bound = max(fwd_bounds)
     f_args0 = by["lpc_forward"][0][0]
     clk_fwd = walk_clock(lambda: lpc_kernel.lpc_fir(*f_args0, **f_kw), walk_kernel.f_pad(F),
                          statistics.median(t_fwd))
@@ -1118,8 +1184,9 @@ def main() -> int:
         f"sample: {summary(t_fwd1)}) | plain "
         f"(one run over every launch's lanes) {fwd_plain_ms:.1f} | bound {fwd_bound[0]:.4f} by "
         f"{fwd_bound[1]} | {clk_fwd[1]:.0f} cycles a row at {clk_fwd[2]:.0f} MHz (L="
-        f"{f_args0[1].numel()}); encode ms {summary(t_enc)} | plain (one run) {enc_plain_ms:.1f} | "
-        f"bound {enc_bound[0]:.4f} by {enc_bound[1]}; bodies "
+        f"{f_args0[1].numel()}); encode (L={lanes13}) ms {summary(t_enc)} | plain (one run) "
+        f"{enc_plain_ms:.1f} | bound {enc_bound[0]:.4f} by {enc_bound[1]} | {clk_enc[0]:.1f} ns, "
+        f"{clk_enc[1]:.0f} cycles a sample at {clk_enc[2]:.0f} MHz; bodies "
         f"{body_bytes} bytes in rows of {e_kw['W_out']} words"
     )
     # The device part of the call alone (planes already on the card to words
@@ -1242,8 +1309,8 @@ def main() -> int:
     sout = sdec.decode_packets(spkts)
     s_launches = port.launch_counts()
     check_decode(sout, spcm, 24)
-    if (s_launches["packet"], s_launches["lpc"], s_launches["raw_read"]) != (1, 1, 8):
-        raise AssertionError(f"7.1 path: launches {s_launches}, want 1 packet, 1 lpc, 8 raw reads")
+    if (s_launches["packet"], s_launches["lpc"], s_launches["raw_read"]) != (1, 1, 1):
+        raise AssertionError(f"7.1 path: launches {s_launches}, want 1 packet, 1 lpc, 1 raw read")
     if sdec.impl.last_fallbacks:
         raise AssertionError(f"{sdec.impl.last_fallbacks} clean 7.1 packets fell back")
     s_audio_s = total / scfg.sample_rate
@@ -1363,20 +1430,20 @@ def main() -> int:
         4 * (s_lpc_in[0].numel() + L16 * (7 + 9) + walk_kernel.f_pad(F) * L16),
         2 * float((s_lpc_in[5].double() * order16.double() * (fir16 == 1)).sum()),
     )
-    reads = [shift_reads(sw.shift_base, sw.bs, sw.role, sw.ns, c) for c in range(8)]
-    n_readers = sum(int(r[3].any()) for r in reads)
-    s_r_err, rr_bytes, rr_ops = 0, 0.0, 0.0
-    for r in reads:
-        want_r = raw_read_reference(swords, *r, F=F)
-        s_r_err = max(s_r_err, amax((raw_read(swords, *r, F=F) - want_r).abs()))
-        fields = torch.where(r[3] != 0, r[4], 0).double()
-        rr_bytes += float((fields * r[1].double()).sum()) / 8 + 4 * n_pk * 5 + 4 * want_r.numel()
-        rr_ops += 4 * float(fields.sum())
+    sreads = shift_reads(sw.shift_base, sw.bs, sw.role, sw.ns)
+    n_readers = int(sreads[3].view(8, -1).any(dim=1).sum())
+
+    def sread():
+        return raw_read(swords, *sreads[:5], F=F, row=sreads[5])
+
+    want_r = raw_read_reference(swords, *sreads[:5], F=F, row=sreads[5])
+    s_r_err = amax((sread() - want_r).abs())
     if s_r_err != 0:
         raise AssertionError(f"raw reader differs from its plain version on the 7.1 batch")
     r_err = max(r_err, s_r_err)
-    t_srr = cuda_times(lambda: [raw_read(swords, *r, F=F) for r in reads])
-    s_rr_bound = bound(rr_bytes, rr_ops)
+    t_srr = cuda_times(sread)
+    s_rr_bound = raw_bound(sreads, want_r)
+    del want_r
     print(
         f"phase 16 {tag} the 7.1 path's kernels at B={n_pk} F={F}, tolerance 0: packet kernel "
         f"vs plain max_abs_err {pk_err} (plain {pk_plain_ms / 1e3:.1f} s); lpc (L={L16}) vs plain "
@@ -1384,11 +1451,12 @@ def main() -> int:
         f"{pk_bound[0]:.4f} by {pk_bound[1]} | {clk_pk[0]:.1f} ns, {clk_pk[1]:.0f} cycles a row "
         f"at {clk_pk[2]:.0f} MHz; lpc taps 9 ms "
         f"{summary(t_slpc)} | plain {s_lpc_plain:.1f} | bound {s_lpc_bound[0]:.4f} by "
-        f"{s_lpc_bound[1]} | {clk_slpc[1]:.0f} cycles a row at {clk_slpc[2]:.0f} MHz; the 8 raw "
-        f"reads ({n_readers} with active lanes) ms {summary(t_srr)} "
+        f"{s_lpc_bound[1]} | {clk_slpc[1]:.0f} cycles a row at {clk_slpc[2]:.0f} MHz; the raw "
+        f"read (one launch, L={sreads[0].numel()} lanes of 8 channels, {n_readers} with active "
+        f"lanes) ms {summary(t_srr)} "
         f"| bound {s_rr_bound[0]:.4f} by {s_rr_bound[1]}"
     )
-    del swords, sw, s_lpc_in, reads
+    del swords, sw, s_lpc_in, sreads
 
     # ---- phase 17: the dense entropy kernel on its probe path ----
     def entropy_streams(res_list, ns_l, pb_list, cb_l, kb, start, Fe):
@@ -1687,6 +1755,9 @@ def main() -> int:
             "ms": statistics.median(t_rr), "plain_ms": statistics.median(t_rr_plain),
             "bound_ms": rr_bound[0], "bound_by": rr_bound[1], "library_ms": None,
             "ms_warm": statistics.median(t_rr_warm),
+            "launches_71": s_launches["raw_read"], "ms_71": statistics.median(t_srr),
+            "bound_ms_71": s_rr_bound[0], "ptxas": er_regs.get("raw_read"),
+            "sass": er_sass.get("raw_read"),
         },
         {
             "name": "lpc_forward", "route": "cuda",
@@ -1708,6 +1779,9 @@ def main() -> int:
             "launches": e_launches["encode"], "max_abs_err": enc_err,
             "ms": statistics.median(t_enc), "plain_ms": enc_plain_ms,
             "bound_ms": enc_bound[0], "bound_by": enc_bound[1], "library_ms": None,
+            "lanes": lanes13, "ns_per_sample": clk_enc[0], "cycles_per_sample": clk_enc[1],
+            "sm_mhz": clk_enc[2], "ptxas": er_regs.get("encode"), "sass": er_sass.get("encode"),
+            "sass_loops": enc_loops,
         },
         {
             "name": "packet", "route": "cuda",

@@ -166,15 +166,17 @@ def load():
         ]
         raw.alac_raw_read_launch.restype = I
         raw.alac_raw_read_launch.argtypes = [
-            P, I, P, P, P, P, P,  # words, W, base, step, width, act, n
-            P, I, I, I,  # out, B, F_pad, is_signed
+            P, I, I, P,  # words, W, B, row
+            P, P, P, P, P,  # base, step, width, act, n
+            P, I, I, I,  # out, L, F_pad, is_signed
             P,  # stream
         ]
         encode.alac_encode_launch.restype = I
         encode.alac_encode_launch.argtypes = [
-            P, P, P, P, P, P, P,  # n_t, zr_t, act, pb_local, max_size, ns, mb
+            P, P, P, I,  # n_t, zr_t, row, R
+            P, P, P, P, P,  # act, pb_local, max_size, ns, mb
             P, P, P,  # words, bits, ovf
-            I, I, I, I,  # B, F, W, kb
+            I, I, I, I,  # L, F, W, kb
             P,  # stream
         ]
         packet.alac_packet_launch.restype = I

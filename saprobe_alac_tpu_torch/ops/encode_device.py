@@ -6,7 +6,8 @@ packets, as decode is: a forward LPC over (packet, channel) lanes produces
 residuals (`_lpc_forward`, one forward LPC kernel launch for all the
 channels of an element, orders 1..30), each channel's residuals are
 entropy-coded into a body at bit 0
-(`_entropy_body`, the encode kernel), and plain PyTorch assembles headers,
+(`_entropy_bodies`, one encode kernel launch for all the channels of an
+element under all its pbFactor candidates), and plain PyTorch assembles headers,
 shift regions, bodies and the verbatim (escape) variant into packets.  On a
 CUDA tensor the two kernels run; on a CPU tensor their plain versions;
 nothing else selects.
@@ -118,7 +119,7 @@ def _lpc_forward(chans, order, den_shift, cb, ns, coefs, F, mode):
 
 
 def _entropy_args(res, ns, pb_local, cb, mb):
-    """The encode kernel's inputs for one channel's residuals (B, F):
+    """The encode kernel's inputs for residual rows (B, F), one lane a row:
     `dense_encode` positional arguments (n_t and zr1_t (F, B), act,
     pb_local, max_size, ns, mb), every lane active."""
     B = res.shape[0]
@@ -131,13 +132,51 @@ def _entropy_args(res, ns, pb_local, cb, mb):
             ns.to(I32), full * mb)
 
 
-def _entropy_body(res, ns, pb_local, cb, mb, kb, F, Wch):
-    """Entropy-encode one channel for all lanes into a buffer of its own at
-    bit 0: (buf (B, Wch) int32 big-endian bit order, bits (B,), ovf (B,))."""
-    args = _entropy_args(res, ns, pb_local, cb, mb)
-    _note("encode", args, dict(kb=kb, F=F, W_out=Wch))
-    buf, bits, ovf = dense_encode(*args, kb=kb, F=F, W_out=Wch)
-    return buf, bits.to(I64), ovf != 0
+def _element_entropy_args(res_list, ns, pb_locals, cb, mb):
+    """The encode kernel's inputs for every channel of an element under
+    every pbFactor candidate, one launch: (`dense_encode` positional
+    arguments, row map).  Rows (F, nch*B) channel-major; lanes
+    candidate-major, then channel (lane (p*nch + c)*B + b codes row c*B + b
+    with ``pb_locals[p]``)."""
+    nch, B = len(res_list), res_list[0].shape[0]
+    P = len(pb_locals)
+    n_t, zr_t, act, _, max_size, ns_l, mb_l = _entropy_args(
+        torch.cat(res_list), ns.repeat(nch), pb_locals[0].repeat(nch), cb, mb)
+    pb = torch.cat([pbl.to(I32).repeat(nch) for pbl in pb_locals])
+    row = torch.arange(nch * B, dtype=I32, device=n_t.device).repeat(P)
+    act, max_size, ns_l, mb_l = (x.repeat(P) for x in (act, max_size, ns_l, mb_l))
+    return (n_t, zr_t, act, pb, max_size, ns_l, mb_l), row
+
+
+def _entropy_bodies(res_list, ns, pb_cands, pb, cb, mb, kb, F, Wch):
+    """Entropy-encode the channels of one element, each under every
+    pbFactor candidate, in one encode kernel launch; the smallest body wins
+    per (lane, channel), ties keeping the earlier candidate.  Returns per
+    channel (buf (B, Wch) int32 at bit 0, big-endian bit order, bits (B,),
+    chosen pbFactor (B,)) and the lanes that overflowed a row (B,)."""
+    nch, B = len(res_list), res_list[0].shape[0]
+    dev = res_list[0].device
+    pb_locals = [torch.full((B,), (pb * pbf) // 4, dtype=I64, device=dev) for pbf in pb_cands]
+    args, row = _element_entropy_args(res_list, ns, pb_locals, cb, mb)
+    kw = dict(kb=kb, F=F, W_out=Wch, row=row)
+    _note("encode", args, kw)
+    buf, bits, ovf = dense_encode(*args, **kw)
+    P = len(pb_cands)
+    buf = buf.view(P, nch, B, Wch)
+    bits = bits.to(I64).view(P, nch, B)
+    ovf_any = (ovf != 0).view(P * nch, B).any(dim=0)
+    bodies = []
+    for c in range(nch):
+        best = (buf[0, c], bits[0, c], torch.full((B,), pb_cands[0], dtype=I64, device=dev))
+        for p in range(1, P):
+            better = bits[p, c] < best[1]
+            best = (
+                torch.where(better[:, None], buf[p, c], best[0]),
+                torch.where(better, bits[p, c], best[1]),
+                torch.where(better, pb_cands[p], best[2]),
+            )
+        bodies.append(best)
+    return bodies, ovf_any
 
 
 def _pack_fields(values, width):
@@ -271,8 +310,9 @@ def encode_walk(
     smaller, and the chosen buffer is added into the packet at the lane's
     bit position: trailing zero words add nothing, and later emissions into
     the same region are adds too, so no masking is needed.  With several
-    pb_candidates each channel is entropy-coded once per candidate and the
-    smallest wins per lane (ties keep the earlier one)."""
+    pb_candidates each channel is entropy-coded once per candidate (one
+    launch for them all) and the smallest wins per lane (ties keep the
+    earlier one)."""
     F, C = frame_length, num_channels
     B = planes.shape[0]
     dev = planes.device
@@ -350,27 +390,11 @@ def encode_walk(
                 bad |= (validF & (res == -(1 << 31))).any(dim=1)
 
         # --- compressed variant (scratch): headers, shift region, bodies ---
-        # Each channel body is coded at bit 0 of a buffer of its own, once
-        # per pbFactor candidate; the smallest wins per lane.
+        # Each channel body is coded at bit 0 of a buffer of its own, under
+        # every pbFactor candidate, all in one launch; the smallest wins per lane.
         Wch = (F * bps_e + 256) // 32 + 4
-        bodies = []
-        for res in res_list:
-            best = None
-            for pbf in pb_cands:
-                buf, blen, ovf = _entropy_body(
-                    res, ns, const((pb * pbf) // 4), cb, mb, kb, F, Wch
-                )
-                ovf_any |= ovf
-                if best is None:
-                    best = (buf, blen, const(pbf))
-                else:
-                    better = blen < best[1]
-                    best = (
-                        torch.where(better[:, None], buf, best[0]),
-                        torch.where(better, blen, best[1]),
-                        torch.where(better, pbf, best[2]),
-                    )
-            bodies.append(best)
+        bodies, ovf = _entropy_bodies(res_list, ns, pb_cands, pb, cb, mb, kb, F, Wch)
+        ovf_any |= ovf
         del res_list
 
         Ws = (comp_bits + 31) // 32 + 4

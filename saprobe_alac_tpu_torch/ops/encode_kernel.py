@@ -5,12 +5,16 @@ Counterpart of saprobe_alac_tpu/ops/encode_kernel.py `dense_encode_pallas`
 (csrc/encode_kernel.cu) for CUDA tensors and runs the plain PyTorch version,
 `dense_encode_reference`, for CPU tensors.
 
-Inputs, as the TPU kernel takes them: ``n_t`` (F, B) int32 zigzagged
+Inputs, as the TPU kernel takes them: ``n_t`` (F, R) int32 zigzagged
 residuals (2d for d >= 0, -2d-1 below, wrapping; read as uint32) and
-``zr_t`` (F, B) the zero run that starts at the NEXT sample
+``zr_t`` (F, R) the zero run that starts at the NEXT sample
 (zrun[t + 1], clipped to 65535, don't-care past ns); per lane ``act``,
 ``pb_local``, ``max_size`` (the escape suffix width, 1..32), ``ns`` (<= F)
-and ``mb``.  Returns ``(words (B, W_out) int32, bits (B,), ovf (B,))``:
+and ``mb``.  ``row`` (L,) maps each lane to its residual row, so one call
+codes every channel of an element under every pbFactor candidate (lanes
+differ in row and pb_local, no row is copied); without it lane l codes row
+l (L = R), and a lane whose row lies outside [0, R) codes nothing.
+Returns ``(words (L, W_out) int32, bits (L,), ovf (L,))``:
 each lane's stream from bit 31 of its word 0 (big-endian bit order), every
 bit past ``bits`` zero (callers add whole rows into a packet at a bit
 offset); inactive lanes and ``ns == 0`` report 0 bits.  ``ovf`` flags a
@@ -30,31 +34,38 @@ from .torchint import clz, lg3a, shl, u, wrap
 _M32 = 0xFFFFFFFF
 
 
-def dense_encode(n_t, zr_t, act, pb_local, max_size, ns, mb, *, kb, F, W_out):
+def dense_encode(n_t, zr_t, act, pb_local, max_size, ns, mb, *, kb, F, W_out, row=None):
     if kb < 1:
         raise ValueError(f"kb must be positive, got {kb}")
     kb = min(kb, 32)  # k never passes 23 and the run mask is 32 bits wide
     lane = (act, pb_local, max_size, ns, mb)
     if n_t.device.type == "cpu":
-        return dense_encode_reference(n_t, zr_t, *lane, kb=kb, F=F, W_out=W_out)
+        return dense_encode_reference(n_t, zr_t, *lane, kb=kb, F=F, W_out=W_out, row=row)
     if n_t.device.type != "cuda":
         raise ValueError(f"no encode kernel for device {n_t.device}")
-    B = n_t.shape[1]
-    for name, t in zip(("n_t", "zr_t", *("lane",) * 5), (n_t, zr_t, *lane)):
+    R, L = n_t.shape[1], act.shape[0]
+    if row is None and L != R:
+        raise ValueError(f"{L} lanes for {R} rows need a row map")
+    names = ("n_t", "zr_t", "act", "pb_local", "max_size", "ns", "mb", "row")
+    for name, t in zip(names, (n_t, zr_t, *lane, row)):
+        if t is None:
+            continue
         if t.device != n_t.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: want contiguous int32 on {n_t.device}")
-    if n_t.shape != (F, B) or zr_t.shape != (F, B) or any(t.shape != (B,) for t in lane):
-        raise ValueError(f"rows must be ({F}, {B}) and lane inputs ({B},)")
+        want = (F, R) if name in ("n_t", "zr_t") else (L,)
+        if t.shape != want:
+            raise ValueError(f"{name}: want shape {want}, got {tuple(t.shape)}")
     # The kernel stores only the words it fills: the zero tails are these.
-    words = torch.zeros((B, W_out), dtype=torch.int32, device=n_t.device)
-    bits = torch.empty(B, dtype=torch.int32, device=n_t.device)
-    ovf = torch.empty(B, dtype=torch.int32, device=n_t.device)
+    words = torch.zeros((L, W_out), dtype=torch.int32, device=n_t.device)
+    bits = torch.empty(L, dtype=torch.int32, device=n_t.device)
+    ovf = torch.empty(L, dtype=torch.int32, device=n_t.device)
     lib = _build.load()
     with torch.cuda.device(n_t.device):
         stream = torch.cuda.current_stream(n_t.device).cuda_stream
         rc = lib.alac_encode_launch(
-            n_t.data_ptr(), zr_t.data_ptr(), *(t.data_ptr() for t in lane),
-            words.data_ptr(), bits.data_ptr(), ovf.data_ptr(), B, F, W_out, kb, stream,
+            n_t.data_ptr(), zr_t.data_ptr(), None if row is None else row.data_ptr(), R,
+            *(t.data_ptr() for t in lane), words.data_ptr(), bits.data_ptr(), ovf.data_ptr(),
+            L, F, W_out, kb, stream,
         )
     if rc != 0:
         raise RuntimeError(f"encode kernel launch failed: CUDA error {rc}")
@@ -95,13 +106,17 @@ def _rice_code(words, bitpos, on, value, m, k, esc_bits):
     return _emit(words, bitpos, sfx_v, torch.where(on, sfx_w, 0))
 
 
-def dense_encode_reference(n_t, zr_t, act, pb_local, max_size, ns, mb, *, kb, F, W_out):
+def dense_encode_reference(n_t, zr_t, act, pb_local, max_size, ns, mb, *, kb, F, W_out,
+                           row=None):
     """Plain PyTorch encoder: the lockstep loop of encode_device.py:230-311,
     every live lane coding one sample (and the zero run after it) per step.
     Internals run in int64 holding uint32 views."""
     I = torch.int64
-    B = n_t.shape[1]
+    R, B = n_t.shape[1], act.shape[0]
     dev = n_t.device
+    col = torch.arange(B, device=dev) if row is None else row.to(I)
+    inside = (col >= 0) & (col < R)
+    col = col.clamp(0, max(R - 1, 0))[None, :]
     wb = (1 << kb) - 1 if kb < 32 else _M32
     nsl = ns.to(I).clamp(max=F)
     pb = u(pb_local)
@@ -112,13 +127,13 @@ def dense_encode_reference(n_t, zr_t, act, pb_local, max_size, ns, mb, *, kb, F,
     i = torch.zeros(B, dtype=I, device=dev)
     mean = u(mb)
     zmode = torch.zeros(B, dtype=I, device=dev)
-    live = (act != 0) & (nsl > 0)
+    live = (act != 0) & (nsl > 0) & inside
     sixteen = torch.full((B,), 16, dtype=I, device=dev)
     for _ in range(F):
         if not bool(live.any()):
             break
         at = i.clamp(max=F - 1)[None, :]
-        n = u(n_t.gather(0, at)[0])
+        n = u(n_t[at, col][0])
         value = (n - zmode) & _M32
         k = lg3a(mean >> 9).clamp(max=kb)
         m = wrap(u(shl(torch.ones_like(k), k)) - 1)
@@ -133,7 +148,7 @@ def dense_encode_reference(n_t, zr_t, act, pb_local, max_size, ns, mb, *, kb, F,
         zcond = live & (((mean << 2) & _M32) < 512) & (i < nsl)
         k32 = (clz(mean) - 24 + (((mean + 16) & _M32) >> 6)).clamp(min=0)
         mz = u(shl(torch.ones_like(k32), k32) - 1) & wb
-        run = zr_t.gather(0, at)[0].to(I).clamp(0, 65535)
+        run = zr_t[at, col][0].to(I).clamp(0, 65535)
         bitpos = _rice_code(words, bitpos, zcond, run, wrap(mz), k32, sixteen)
         i = torch.where(zcond, i + run, i)
         zmode = torch.where(zcond, (run < 65535).to(I), zmode)

@@ -16,33 +16,35 @@ from .raw_reader import raw_read
 from .torchint import shl, sshr, ushr, wrap
 
 
-def shift_reads(shift_base, bs, role, ns, c=0):
-    """The raw reader's lane inputs (base, step, width, act, n) for the shift
-    region of channel ``c``, contiguous int32.
+def shift_reads(shift_base, bs, role, ns):
+    """The raw reader's inputs for the shift region of every channel:
+    (base, step, width, act, n, row), contiguous int32, lanes channel-major
+    (lane c*B + b reads channel c of packet ``row`` = b).
 
     Mono channels read consecutive ``bs*8``-bit values; a CPE interleaves
     U/V (decoder.go:314-321, 492-502), so the U channel reads each
     ``(u << w) | v`` pair as ONE 2w-bit field and the V channel (role 2)
     reads nothing of its own: it takes the low half of its partner's read."""
-    width = bs[:, c] * 8
-    stride = torch.where(role[:, c] == 0, width, 2 * width)
-    act = (bs[:, c] > 0) & (role[:, c] != 2)
-    lanes = (shift_base[:, c], stride, stride, act, ns)
+    B, C = bs.shape
+    width = bs * 8
+    stride = torch.where(role == 0, width, 2 * width)
+    act = (bs > 0) & (role != 2)
+    row = torch.arange(B, device=bs.device).repeat(C)
+    lanes = (*(x.T.reshape(C * B) for x in (shift_base, stride, stride, act)), ns.repeat(C), row)
     return tuple(x.to(torch.int32).contiguous() for x in lanes)
 
 
 def extract_shift(words, shift_base, bs, role, ns, *, F, C):
     """The shift region's low bits: (F, C, B) int32 F-major planes, equal to
-    the JAX package's `extract_shift_kernel` (epilogue.py:109-142): one read
-    per channel with `shift_reads` (C launches, a channel that no lane reads
-    for included, as there), the V halves split from channel c - 1's fused
-    read."""
+    the JAX package's `extract_shift_kernel` (epilogue.py:109-142): one raw
+    read over every (channel, packet) lane of `shift_reads` (the lanes of a
+    V channel, or of a channel without a shift region, are inactive and
+    read nothing), the V halves split from channel c - 1's fused read."""
+    B = words.shape[0]
+    *lanes, row = shift_reads(shift_base[:, :C], bs[:, :C], role[:, :C], ns)
     # Shift bits are OR-ed back in unsigned.
-    reads = [
-        raw_read(words, *shift_reads(shift_base, bs, role, ns, c), F=F, signed=False)[:F]
-        .to(torch.int64)
-        for c in range(C)
-    ]
+    out = raw_read(words, *lanes, F=F, signed=False, row=row)[:F].to(torch.int64)
+    reads = [out[:, c * B : (c + 1) * B] for c in range(C)]
     planes = []
     for c in range(C):
         width = bs[:, c] * 8

@@ -46,15 +46,6 @@ def lpc_fir(res, fir_code, order, den, cb, ns, wrap16, mode, coefs, *, F, taps, 
         return lpc_fir_reference(res, *lane, coefs, F=F, taps=taps, forward=forward)
     if res.device.type != "cuda":
         raise ValueError(f"no LPC kernel for device {res.device}")
-    fn = getattr(_build.load(), _build.lpc_entry(taps, forward))
-    out = launch(fn, res, lane, coefs, F=F, taps=taps)
-    _build.count_launch("lpc_forward" if forward else "lpc")
-    return out
-
-
-def launch(fn, res, lane, coefs, *, F, taps):
-    """One launch of an LPC entry point (`_build.bind_lpc`) on CUDA tensors,
-    lpc_fir's arguments checked and laid out for it; returns out."""
     P, F_src, S = res.shape
     L = P * S
     Fp = f_pad(F)
@@ -67,6 +58,7 @@ def launch(fn, res, lane, coefs, *, F, taps):
     if any(t.shape != (L,) for t in lane) or coefs_t.shape != (taps, L):
         raise ValueError(f"lane inputs must be ({L},), coefs ({L}, >= {taps})")
     out = torch.empty((Fp, L), dtype=torch.int32, device=res.device)
+    fn = getattr(_build.load(), _build.lpc_entry(taps, forward))
     with torch.cuda.device(res.device):
         stream = torch.cuda.current_stream(res.device).cuda_stream
         rc = fn(
@@ -75,6 +67,7 @@ def launch(fn, res, lane, coefs, *, F, taps):
         )
     if rc != 0:
         raise RuntimeError(f"LPC kernel launch failed: CUDA error {rc}")
+    _build.count_launch("lpc_forward" if forward else "lpc")
     return out
 
 

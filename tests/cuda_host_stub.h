@@ -26,6 +26,10 @@ struct HostDim3 {
 };
 static HostDim3 blockIdx, threadIdx, blockDim;
 
+struct uint4 {
+  unsigned x, y, z, w;
+};
+
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return cudaSuccess; }

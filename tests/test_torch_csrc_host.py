@@ -478,7 +478,7 @@ def test_raw_reader_kernel_host_matches_plain(host_lib, width, signed):
     want = raw_read_reference(*args, F=Fr, signed=signed)
     got = torch.full_like(want, SENTINEL)
     rc = host_lib.alac_raw_read_launch(
-        _ptr(args[0]), W, *(_ptr(t) for t in args[1:]), _ptr(got), B, want.shape[0],
+        _ptr(args[0]), W, B, None, *(_ptr(t) for t in args[1:]), _ptr(got), B, want.shape[0],
         int(signed), None,
     )
     assert rc == 0
@@ -572,7 +572,8 @@ def test_encode_kernel_host_matches_plain(host_lib, kb, cb, pb, mb):
     bits = torch.full((B,), SENTINEL, dtype=torch.int32)
     ovf = torch.full((B,), SENTINEL, dtype=torch.int32)
     rc = host_lib.alac_encode_launch(
-        *(_ptr(t) for t in args), _ptr(words), _ptr(bits), _ptr(ovf), B, F, W, kb, None
+        _ptr(args[0]), _ptr(args[1]), None, B, *(_ptr(t) for t in args[2:]), _ptr(words),
+        _ptr(bits), _ptr(ovf), B, F, W, kb, None
     )
     assert rc == 0
     assert int(want[1].max()) > 9 * F and not want[2].any()
@@ -594,10 +595,196 @@ def test_encode_kernel_host_flags_a_short_row(host_lib):
     bits = torch.zeros(B, dtype=torch.int32)
     ovf = torch.zeros(B, dtype=torch.int32)
     rc = host_lib.alac_encode_launch(
-        *(_ptr(t) for t in args), _ptr(words), _ptr(bits), _ptr(ovf), B, F, W, 14, None
+        _ptr(args[0]), _ptr(args[1]), None, B, *(_ptr(t) for t in args[2:]), _ptr(words),
+        _ptr(bits), _ptr(ovf), B, F, W, 14, None
     )
     assert rc == 0 and ovf.any() and not ovf.all()
     assert torch.equal(bits, want[1]) and torch.equal(ovf, want[2])
     assert not words[B * W :].any()
     fits = ovf == 0
     assert torch.equal(words[: B * W].view(B, W)[fits], want[0][fits])
+
+
+@pytest.fixture(scope="module")
+def quotient_lib(tmp_path_factory):
+    """The encode kernel's source as host C++ with one more entry point:
+    the mismatches of its divide-free quotient against a divide."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    tmp = tmp_path_factory.mktemp("quotient_host")
+    src = tmp / "quotient.cpp"
+    src.write_text(_host_source((CSRC / "encode_kernel.cu").read_text()) + """
+extern "C" int64_t quotient_misses(int32_t j, const uint32_t* v, int64_t n) {
+  const uint32_t m = (1u << j) - 1u;
+  int64_t bad = 0;
+  for (int64_t i = 0; i < n; ++i) bad += rice_quotient(v[i], j) != v[i] / m;
+  return bad;
+}
+""")
+    so = tmp / "libquotient.so"
+    cmd = ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-w", "-include", str(STUB),
+           "-I", str(CSRC), "-o", str(so), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(str(so))
+    lib.quotient_misses.restype = ctypes.c_int64
+    lib.quotient_misses.argtypes = [ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64]
+    return lib
+
+
+@pytest.mark.parametrize("j", range(1, 24))
+def test_encode_quotient_is_exact_below_nine(quotient_lib, j):
+    """`rice_quotient(v, j)` == v / (2^j - 1) wherever the encoder uses it
+    (v < 9 (2^j - 1); j = k <= 23 for a sample, j <= 17 for a zero run):
+    every such v for j <= 18, the edges of each quotient and 2 M random
+    values beyond."""
+    m = (1 << j) - 1
+    if j <= 18:
+        v = np.arange(9 * m, dtype=np.uint32)
+    else:
+        rng = np.random.default_rng(j)
+        edges = np.arange(10)[:, None] * m + np.arange(-3, 4)[None, :]
+        v = np.concatenate([edges.ravel(), rng.integers(0, 9 * m, 2_000_000)])
+        v = v[(v >= 0) & (v < 9 * m)].astype(np.uint32)
+    assert quotient_lib.quotient_misses(j, v.ctypes.data, v.size) == 0
+
+
+def _host_encode(host_lib, args, kb, W, row=None, R=None):
+    """The encode kernel on the host: (words, bits, ovf) of args' lanes."""
+    L = args[2].shape[0]
+    words = torch.zeros((L, W), dtype=torch.int32)  # the wrapper's zeroed buffer
+    bits = torch.full((L,), SENTINEL, dtype=torch.int32)
+    ovf = torch.full((L,), SENTINEL, dtype=torch.int32)
+    rc = host_lib.alac_encode_launch(
+        _ptr(args[0]), _ptr(args[1]), None if row is None else _ptr(row),
+        L if R is None else R, *(_ptr(t) for t in args[2:]), _ptr(words), _ptr(bits),
+        _ptr(ovf), L, F, W, kb, None,
+    )
+    assert rc == 0
+    return words, bits, ovf
+
+
+@pytest.mark.parametrize("kb", [2, 3, 5, 17, 31, 32])
+def test_encode_kernel_host_zero_run_divisors(host_lib, kb):
+    """Zero-run codewords whose divisor is masked by kb (k32 = 8 > kb once
+    the mean is 0) and whose divisor is 2^31 - 1 or all ones (a mean that
+    wrapped: k32 past 32, j = kb; at kb 32 the divisor reads as -1 and
+    forces the escape), their k32-wide suffix clamped to 32 bits: pbFactor 0
+    keeps the mean where mb puts it."""
+    rng = np.random.default_rng(2000 + kb)
+    B = 48
+    res = np.where(rng.random((B, F)) < 0.6, 0, rng.integers(-20, 20, (B, F)))
+    res[40:] = 0
+    ns = np.full(B, F, np.int32)
+    zrun = _zero_run_table(torch.from_numpy(res.astype(np.int32)), torch.from_numpy(ns)).numpy()
+    pb = np.where(np.arange(B) < 32, 0, 40).astype(np.int32)
+    args = list(encode_inputs_from_jax(res, zrun, pb, 17, ns, 10))
+    mb = np.full(B, 10, np.int32)
+    mb[8:32] = np.tile(np.array([0x40000010, -0x7FFFFFE0, -0x40000000], np.int64), 8)
+    args[6] = torch.from_numpy(mb.astype(np.int32))
+    W = (F * (9 + max(kb, 17) + 26) + 256) // 32 + 4
+    want = encode_kernel.dense_encode_reference(*args, kb=kb, F=F, W_out=W)
+    got = _host_encode(host_lib, args, kb, W)
+    assert not want[2].any() and (want[1] > 0).all()
+    for name, g, w in zip(("words", "bits", "ovf"), got, want):
+        assert torch.equal(g, w), f"{name} differs at {torch.nonzero(g != w)[:5].tolist()}"
+
+
+@pytest.mark.parametrize("cands", [(4, 10), (2, 4, 7)])
+def test_encode_kernel_host_one_launch_per_element(host_lib, cands):
+    """One launch for two channels under two or three pbFactor candidates,
+    lanes candidate-major then channel, each reading its channel's row
+    through the row map: equal to the plain version with the same map, and
+    lane by lane to the plain version of each channel alone under its
+    candidate's pb_local."""
+    from saprobe_alac_tpu_torch.ops.encode_device import _element_entropy_args
+
+    res_list, ns = [], None
+    for c in range(2):
+        res, ns_np, _ = _encode_lanes(3000 + c, 17)
+        res_list.append(torch.from_numpy(res.astype(np.int32)))
+        ns = torch.from_numpy(ns_np)
+    B = ns.shape[0]
+    pb_locals = [torch.full((B,), (40 * p) // 4, dtype=torch.int64) for p in cands]
+    args, row = _element_entropy_args(res_list, ns, pb_locals, 17, 10)
+    args = list(args)
+    args[2] = args[2].clone()
+    args[2][[7, B + 70, 2 * B + 3]] = 0  # inactive lanes
+    kb, W = 14, (F * (9 + 17 + 26) + 256) // 32 + 4
+    want = encode_kernel.dense_encode_reference(*args, kb=kb, F=F, W_out=W, row=row)
+    got = _host_encode(host_lib, args, kb, W, row=row, R=2 * B)
+    for name, g, w in zip(("words", "bits", "ovf"), got, want):
+        assert torch.equal(g, w), f"{name} differs at {torch.nonzero(g != w)[:5].tolist()}"
+    for p in range(len(cands)):
+        for c in range(2):
+            lanes = slice((p * 2 + c) * B, (p * 2 + c + 1) * B)
+            one = [a[:, c * B : (c + 1) * B] for a in args[:2]] + [a[lanes] for a in args[2:]]
+            alone = encode_kernel.dense_encode_reference(*one, kb=kb, F=F, W_out=W)
+            assert all(torch.equal(g[lanes], w) for g, w in zip(got, alone))
+    assert len(set(got[1].view(len(cands), 2 * B).sum(1).tolist())) == len(cands)
+
+
+def _host_raw_read(host_lib, words, lanes, F_r, signed, row=None):
+    """The raw reader kernel on the host: out (F_pad, L)."""
+    B, W = words.shape
+    L = lanes[0].shape[0]
+    out = torch.full((walk_kernel.f_pad(F_r), L), SENTINEL, dtype=torch.int32)
+    rc = host_lib.alac_raw_read_launch(
+        _ptr(words), W, B, None if row is None else _ptr(row), *(_ptr(t) for t in lanes),
+        _ptr(out), L, out.shape[0], int(signed), None,
+    )
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("step", [8, 16, 24, 32, 48, 64])
+def test_raw_reader_kernel_host_vector_reads(host_lib, step):
+    """At each step (the vector-load forms at 8, 16 and 32, one read a
+    field at every other step), signed and unsigned: widths 1..32, bases at every bit
+    phase, rows of W = 421 words (so a row starts at any word of a 16-byte
+    chunk), fields straddling column W - 1 and running past it, inactive
+    lanes, n from 0 to past F, and a row map that repeats rows and points
+    outside the batch (those lanes read zeros)."""
+    Bw, W, L, Fr = 60, 421, 200, 200
+    rng = np.random.default_rng(4000 + step)
+    i32 = np.int32
+    words = rng.integers(-(2**31), 2**31, size=(Bw, W), dtype=np.int64).astype(i32)
+    widths = rng.integers(1, 33, size=L).astype(i32)
+    steps = np.full(L, step, i32)
+    n = rng.integers(0, Fr + 20, size=L).astype(i32)
+    act = (rng.random(L) < 0.85).astype(i32)
+    base = rng.integers(0, 200, size=L)
+    tail = W * 32 - np.minimum(n[:16], Fr) * step + rng.integers(-40, 33, size=16)
+    base[:16] = np.maximum(tail, 0)
+    row = rng.integers(0, Bw, size=L)
+    row[[3, 77]] = [Bw, -1]
+    lanes = [torch.from_numpy(x.astype(i32)) for x in (base, steps, widths, act, n)]
+    w_t, row_t = torch.from_numpy(words), torch.from_numpy(row.astype(i32))
+    for signed in (False, True):
+        want = raw_read_reference(w_t, *lanes, F=Fr, signed=signed, row=row_t)
+        got = _host_raw_read(host_lib, w_t, lanes, Fr, signed, row=row_t)
+        assert (want[:Fr] != 0).sum(0).max() > 100 and not want[:, [3, 77]].any()
+        assert torch.equal(got, want), f"differs at {torch.nonzero(got != want)[:5].tolist()}"
+
+
+def test_raw_reader_kernel_host_one_launch_over_channels(host_lib):
+    """extract_shift's one launch over the C = 8 channel lanes of a 7.1
+    batch (SCE CPE CPE CPE SCE): the V channels' lanes inactive, U lanes
+    reading the pair as one field, some packets without a shift region."""
+    from saprobe_alac_tpu_torch.ops.epilogue import shift_reads
+
+    rng = np.random.default_rng(4100)
+    Bw, C, W = 96, 8, 3 * 8 * F // 4 + 40
+    words = torch.from_numpy(
+        rng.integers(-(2**31), 2**31, size=(Bw, W), dtype=np.int64).astype(np.int32))
+    role = torch.tensor([0, 1, 2, 1, 2, 1, 2, 0], dtype=torch.int32).repeat(Bw, 1)
+    bs = torch.from_numpy(rng.integers(0, 3, size=(Bw, 1)).astype(np.int32)).repeat(1, C)
+    shift_base = torch.from_numpy(
+        (37 + np.arange(C) * 2 * F * 8)[None, :] + rng.integers(0, 64, (Bw, 1))).to(torch.int32)
+    ns = torch.from_numpy(rng.integers(0, F + 1, size=Bw).astype(np.int32))
+    *lanes, row = shift_reads(shift_base, bs, role, ns)
+    want = raw_read_reference(words, *lanes, F=F, row=row)
+    got = _host_raw_read(host_lib, words, lanes, F, False, row=row)
+    assert torch.equal(got, want), f"differs at {torch.nonzero(got != want)[:5].tolist()}"
+    planes = got.view(-1, C, Bw)
+    assert not planes[:, [2, 4, 6]].any() and planes[:, [0, 1, 3, 5, 7]].any(dim=(0, 2)).all()

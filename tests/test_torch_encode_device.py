@@ -328,7 +328,8 @@ def test_collected_calls_are_what_the_kernels_were_given(monkeypatch, order, fwd
     """`_calls` holds each kernel's arguments as the path built them: run
     again on their own they give the bodies the packets hold.  A stereo
     element's forward LPC is one launch over both channels' lanes (none at
-    order 0)."""
+    order 0), and so is its entropy encode (lanes channel-major, each
+    reading its channel's row through the row map)."""
     from saprobe_alac_tpu_torch.ops import encode_kernel, lpc_kernel
 
     cfg = make_config(depth=16, channels=2, frame_length=64)
@@ -337,7 +338,7 @@ def test_collected_calls_are_what_the_kernels_were_given(monkeypatch, order, fwd
     monkeypatch.setattr(ted, "_calls", [])
     pkts = port.encode_packets_device(cfg, spec, pcms, device="cpu")
     names = [name for name, _, _ in ted._calls]
-    assert names == ["encode_walk"] + ["lpc_forward"] * (fwd_channels > 0) + ["encode"] * 2
+    assert names == ["encode_walk"] + ["lpc_forward"] * (fwd_channels > 0) + ["encode"]
     by = {n: [(a, kw) for m, a, kw in ted._calls if m == n] for n in set(names)}
     words, bits, ovf = ted.encode_walk(*by["encode_walk"][0][0], **by["encode_walk"][0][1])
     assert not ovf.any()
@@ -345,10 +346,10 @@ def test_collected_calls_are_what_the_kernels_were_given(monkeypatch, order, fwd
     for fa, fkw in by.get("lpc_forward", []):
         r = lpc_kernel.lpc_fir(*fa, **fkw)[: cfg.frame_length].to(torch.int64)
         zigzag = torch.where(r >= 0, 2 * r, -2 * r - 1).to(torch.int32)
-        B = by["encode"][0][0][0].shape[1]
-        assert zigzag.shape[1] == fwd_channels * B
-        for i, (ea, _) in enumerate(by["encode"]):  # channel i's lanes feed body i
-            assert torch.equal(zigzag[:, i * B : i * B + 3], ea[0][:, :3])
+        (ea, ekw), = by["encode"]
+        B = ea[2].shape[0] // 2
+        assert zigzag.shape[1] == fwd_channels * B and torch.equal(zigzag, ea[0])
+        assert torch.equal(ekw["row"], torch.arange(2 * B, dtype=torch.int32))
     for ea, ekw in by["encode"]:
         assert (encode_kernel.dense_encode(*ea, **ekw)[1][:3] > 0).all()
     monkeypatch.setattr(ted, "_calls", None)
