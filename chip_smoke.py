@@ -127,10 +127,33 @@ Phases, one line each (any failure raises and exits non-zero):
      `shared_decoder`):
      16-bit stereo F=128 packets, five random slices a thread, and phase
      4's B=2048 F=4096 packets, three a thread; every slice's bytes equal
-     to the source, no host fallback.
+     to the source, no host fallback;
+ 20. the facade, the CLI and the corpus service at full size (`facade_phase`),
+     on files the port's encode_to_m4a writes on the card: (a) 600 s of
+     44.1 kHz 16-bit stereo (6,460 packets of F=4096, the last partial) to
+     an .m4a; new_decoder(f).read() equal to the source with windows of 64
+     (one packet walk and one LPC launch a window), timed by the host clock
+     with windows of 64 and of 2048 (median of 3 warm runs, x realtime); the
+     time to the first MiB after open; a window of 64 one by one
+     (decode_async, the card's tail, finish_async) against one
+     decode_packets call on all 6,460 packets; the packet walk and the LPC
+     against their plain versions on the last window of 64 (60 packets, the
+     last partial), tolerance 0; (b) reads of 1 MiB, five
+     seeded seeks and one seek_exact, each tail equal to the source,
+     decode_file, and the CLI's WAV (header and data); (c) 12 files, half
+     M4A and half CAF (4 x 180 s 44.1 kHz 16-bit stereo, 4 x 120 s 96 kHz
+     24-bit stereo and 4 x 60 s 48 kHz 24-bit 7.1, both with
+     bytesShifted=1) through iter_decode_corpus (batches of 256, 2 in
+     flight), each file equal to its source as it comes, one packet launch
+     a batch, then timed (median of 3 runs, x realtime); the raw read
+     against its plain version on the service's batch of 256 that spans
+     the first two files of the hi-res group and of the 7.1 group,
+     tolerance 0; (d) alac-encode
+     on a WAV of (a)'s first 60 s, decoded back on the card equal to it.
+     No host fallback anywhere.
 The line before the last is the kernels' JSON record (each kernel's
-launches on its path, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
+launches on its path, and on phase 20's paths as ``launches_phase20_*``,
+max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
 nor the JAX package saprobe_alac_tpu is importable here: both are blocked
 before any import.
 """
@@ -179,21 +202,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def music_pcm(n, channels, seed, tonality=0.98, depth=16):
-    """Music-like PCM at ``depth`` bits: correlated tones plus low-level
-    noise (tonality near 0 is near-white noise)."""
-    rng = np.random.default_rng(seed)
-    t = np.arange(n)
-    sig = np.zeros((n, channels))
+def music_pcm(n, channels, seed, tonality=0.98, depth=16, dev=None):
+    """Music-like PCM at ``depth`` bits, an (n, channels) int64 numpy
+    array: correlated tones plus low-level noise (tonality near 0 is
+    near-white noise).  With ``dev`` the signal is made there in bulk, its
+    noise from torch's generator (phase 20's 680 MB corpus); without, on
+    the host from numpy's."""
+    if dev is None:
+        xp, t, rng = np, np.arange(n), np.random.default_rng(seed)
+        noise = lambda: rng.standard_normal(n)  # noqa: E731
+    else:
+        xp, t = torch, torch.arange(n, dtype=torch.float64, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        noise = lambda: torch.randn(n, generator=g, dtype=torch.float64, device=dev)  # noqa: E731
+    cols = []
     for c in range(channels):
         tone = (
-            0.35 * np.sin(2 * np.pi * t / (97.3 + 11 * c))
-            + 0.2 * np.sin(2 * np.pi * t / (23.7 + 3 * c))
-            + 0.1 * np.sin(2 * np.pi * t / (389.0 + 29 * c))
+            0.35 * xp.sin(2 * np.pi * t / (97.3 + 11 * c))
+            + 0.2 * xp.sin(2 * np.pi * t / (23.7 + 3 * c))
+            + 0.1 * xp.sin(2 * np.pi * t / (389.0 + 29 * c))
         )
-        sig[:, c] = tonality * tone * 0.8 + (1 - tonality) * rng.standard_normal(n) * 0.5
+        cols.append(tonality * tone * 0.8 + (1 - tonality) * noise() * 0.5)
     scale = (1 << (depth - 1)) - 1
-    return np.clip(sig * scale, -scale - 1, scale).astype(np.int64)
+    if dev is None:
+        return np.clip(np.stack(cols, 1) * scale, -scale - 1, scale).astype(np.int64)
+    return (torch.stack(cols, 1) * scale).clamp_(-scale - 1, scale).to(torch.int64).cpu().numpy()
 
 
 def pcm_bytes(pcm, depth) -> bytes:
@@ -399,6 +432,72 @@ def lpc_diff(a, b, ns):
     return amax((a - b).abs()[valid])
 
 
+def lanes(w, channels=2):
+    """The LPC kernel's inputs as the main path builds them from a walk."""
+    from saprobe_alac_tpu_torch.ops.lpc import lpc_lanes
+
+    L = w.ns.numel() * channels
+    lane = (
+        w.order.T.reshape(L), w.mode.T.reshape(L), w.den.T.reshape(L),
+        w.cb.T.reshape(L), w.ns.repeat(channels), w.coefs.transpose(0, 1).reshape(L, 32),
+    )
+    return (w.res, *lpc_lanes(*lane))
+
+
+def packet_args(c, words, sizes):
+    """The packet kernel's inputs as walk_batch builds them."""
+    from saprobe_alac_tpu_torch.encoder.spec import CHANNEL_LAYOUT_OFFSETS
+
+    offsets = torch.tensor(CHANNEL_LAYOUT_OFFSETS[c.num_channels - 1], dtype=torch.int32,
+                           device=words.device)
+    kw = dict(kb=c.kb, F=c.frame_length, C=c.num_channels, depth=c.bit_depth, pb_cfg=c.pb,
+              mb_cfg=c.mb)
+    return (words, sizes, offsets), kw
+
+
+def packet_diff(got, want):
+    """Max abs difference over every output of the packet walk, every lane
+    (error lanes too: both run the same walk)."""
+    return max(amax((a.to(torch.int64) - b.to(torch.int64)).abs()) for a, b in zip(got, want))
+
+
+def hold_batch(c, packets, dev, kernels):
+    """The decode path's kernels named in ``kernels`` ("packet", "lpc",
+    "raw_read") against their plain versions, tolerance 0, on the inputs
+    one `decode_async` call on ``packets`` builds (its staged words, its
+    packet walk, the LPC lanes at 9 taps, the shift region's reads).
+    Raises on any difference; returns {name: plain ms}."""
+    from saprobe_alac_tpu_torch.ops import lpc_kernel, walk_kernel
+    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
+    from saprobe_alac_tpu_torch.ops.epilogue import shift_reads
+    from saprobe_alac_tpu_torch.ops.raw_reader import raw_read, raw_read_reference
+    from saprobe_alac_tpu_torch.ops.walk import walk_batch
+
+    Fc, Cc = c.frame_length, c.num_channels
+    words, sizes = TorchBatchDecoder(c, dev)._stage(packets)
+    w = walk_batch(words, sizes, F=Fc, C=Cc, depth=c.bit_depth, pb=c.pb, mb=c.mb, kb=c.kb)
+    err, plain = {}, {}
+    if "packet" in kernels:
+        args, kw = packet_args(c, words, sizes)
+        want, plain["packet"] = timed(lambda: walk_kernel.dense_packet_reference(*args, **kw))
+        err["packet"] = packet_diff(walk_kernel.dense_packet(*args, **kw), want)
+    if "lpc" in kernels:
+        lin = lanes(w, Cc)
+        want, plain["lpc"] = timed(lambda: lpc_kernel.lpc_fir_reference(*lin, F=Fc, taps=9))
+        err["lpc"] = lpc_diff(lpc_kernel.lpc_fir(*lin, F=Fc, taps=9), want, w.ns.repeat(Cc))
+    if "raw_read" in kernels:
+        r = shift_reads(w.shift_base, w.bs, w.role, w.ns)
+        if not bool((r[3] != 0).any()):
+            raise AssertionError(f"{len(packets)} packets at {c.bit_depth} bits: no raw read")
+        want, plain["raw_read"] = timed(lambda: raw_read_reference(words, *r[:5], F=Fc,
+                                                                   row=r[5]))
+        err["raw_read"] = amax((raw_read(words, *r[:5], F=Fc, row=r[5]) - want).abs())
+    if any(err.values()):
+        raise AssertionError(f"{len(packets)} packets of {Cc} channels at {c.bit_depth} bits: "
+                             f"kernels differ from their plain versions {err}")
+    return plain
+
+
 def shared_decoder(port, c, packets, pcm_all, slices, seed, threads=4):
     """Phase 19 (tests/test_stress_concurrent.py's shared-decoder case):
     ``threads`` threads behind a barrier, each decoding ``slices`` random
@@ -432,6 +531,351 @@ def shared_decoder(port, c, packets, pcm_all, slices, seed, threads=4):
     return sum(n for _, n in runs)
 
 
+def stage_breakdown(impl, packets):
+    """One decode_packets call of ``impl`` (a TorchBatchDecoder on the card)
+    stage by stage, each stage synchronised and timed by the host clock:
+    where the host holds the card back.  The LPC's lane setup (`lpc_lanes`)
+    and its kernel are stages of their own.  Returns (the call's bytes,
+    {stage: ms}, the bytes the download copied)."""
+    from saprobe_alac_tpu_torch.ops.epilogue import extract_shift, finish_packed
+    from saprobe_alac_tpu_torch.ops.lpc import lpc_fir, lpc_lanes
+    from saprobe_alac_tpu_torch.ops.walk import walk_batch
+
+    c = impl.config
+    Fc, Cc, depth = c.frame_length, c.num_channels, c.bit_depth
+    ms = {}
+
+    sync = torch.cuda.synchronize if impl.device.type == "cuda" else (lambda: None)
+
+    def stage(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    words, sizes = stage("pack_upload", lambda: impl._stage(packets))
+    w = stage("walk", lambda: walk_batch(words, sizes, F=Fc, C=Cc, depth=depth, pb=c.pb,
+                                         mb=c.mb, kb=c.kb))
+    L = words.shape[0] * Cc
+    lanes_in = stage("lpc_lanes", lambda: lpc_lanes(
+        w.order.T.reshape(L), w.mode.T.reshape(L), w.den.T.reshape(L), w.cb.T.reshape(L),
+        w.ns.repeat(Cc), w.coefs.transpose(0, 1).reshape(L, 32)))
+    mix = stage("lpc", lambda: lpc_fir(w.res, *lanes_in, F=Fc, taps=9)[:Fc])
+    shift = stage("shift_reads", lambda: extract_shift(
+        words, w.shift_base, w.bs, w.role, w.ns, F=Fc, C=Cc) if depth in (24, 32) else None)
+    packed = stage("epilogue", lambda: finish_packed(
+        mix, shift, w.bs, w.mixbits, w.mixres, w.role, w.out_chan, w.filled, C=Cc, depth=depth))
+    host, buf = stage("download", lambda: impl._download(packed))
+    ns = w.ns.cpu().numpy()
+    out = stage("trim", lambda: [impl._to_bytes(host[k], int(ns[k])) for k in range(len(packets))])
+    impl._release(buf)
+    return out, ms, packed.numel() * packed.element_size()
+
+
+#: Phase 20's corpus: (seconds, sample rate, depth, channels, bytesShifted),
+#: four files each, every second one a CAF.
+CORPUS = [(180, 44100, 16, 2, 0)] * 4 + [(120, 96000, 24, 2, 1)] * 4 + [(60, 48000, 24, 8, 1)] * 4
+
+
+def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
+    """Phase 20: the facade, the CLI and the corpus service at full size, on
+    files the port's encoder writes on ``dev``; every entry point is called
+    with ``backend``/``device`` set to ``dev`` (the card: their default).
+    Raises on any byte that differs from the source and on any host
+    fallback.  Returns the phase's numbers and its launches on each path."""
+    import tempfile
+
+    from saprobe_alac_tpu_torch import cli as port_cli
+    from saprobe_alac_tpu_torch.encoder import EncoderSpec, encode_to_m4a
+    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
+    from saprobe_alac_tpu_torch.utils.wav import wav_header, write_wav
+
+    backend = dev.type
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    # Host fallbacks summed over every window and batch of the phase.
+    fallbacks = [0]
+    plain_finish = TorchBatchDecoder.finish_async
+
+    def counted_finish(self, handle, packets):
+        out = plain_finish(self, handle, packets)
+        fallbacks[0] += self.last_fallbacks
+        return out
+
+    def no_fallbacks(where):
+        if fallbacks[0]:
+            raise AssertionError(f"phase 20 {where}: {fallbacks[0]} packets decoded on the host")
+
+    def launched(where, names, counts):
+        missing = [k for k in names if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"phase 20 {where}: no launch of {missing} ({counts})")
+        return {k: counts[k] for k in names}
+
+    res, launches = {}, {}
+    TorchBatchDecoder.finish_async = counted_finish
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    try:
+        d = Path(tmp.name)
+        # ---- (a) one album-length track through the facade ----
+        rate, C = 44100, 2
+        n_a = int(600 * rate * scale)
+        fmt = port.PCMFormat(rate, 16, C)
+        pcm_a = music_pcm(n_a, C, SEED + 20, dev=dev)
+        src = pcm_bytes(pcm_a, 16)
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        blob = encode_to_m4a(fmt, pcm_a, frame_length=frame, device=dev)
+        res["encode_s"] = time.perf_counter() - t0
+        launches["encode_to_m4a"] = launched(
+            "encode_to_m4a", ("lpc_forward", "encode"), port.launch_counts())
+        track = d / "track.m4a"
+        track.write_bytes(blob)
+        n_pk = -(-n_a // frame)
+
+        def read_all(batch_size):
+            with open(track, "rb") as fh:
+                return port.new_decoder(fh, backend=backend, batch_size=batch_size).read()
+
+        port.reset_launch_counts()
+        if read_all(64) != src:
+            raise AssertionError("phase 20 track: the facade's bytes differ from the source")
+        launches["track"] = launched("track", ("packet", "lpc"), port.launch_counts())
+        no_fallbacks("track")
+        windows = -(-n_pk // 64)
+        if launches["track"]["packet"] != windows:
+            raise AssertionError(f"phase 20 track: {launches['track']} launches for "
+                                 f"{windows} windows")
+        audio_a = n_a / rate
+        for bsz in (64, 2048):
+            if bsz != 64 and read_all(bsz) != src:
+                raise AssertionError(f"phase 20 track, windows of {bsz}: bytes differ")
+            ts = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                read_all(bsz)
+                ts.append(time.perf_counter() - t0)
+            res[f"read_s_batch{bsz}"] = summary(ts)
+            res[f"x_realtime_batch{bsz}"] = audio_a / statistics.median(ts)
+        first = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            with open(track, "rb") as fh:
+                chunk = port.new_decoder(fh, backend=backend).read(1 << 20)
+            first.append((time.perf_counter() - t0) * 1e3)
+            if chunk != src[: 1 << 20]:
+                raise AssertionError("phase 20 track: the first MiB differs")
+        res["first_mib_ms"] = summary(first)
+        no_fallbacks("track, timed reads")
+        # Where a window's time goes: decode_async (staging, upload, launches)
+        # on the host, then the card's tail, then finish_async (download,
+        # trim); against one decode_packets call on the whole track.
+        with open(track, "rb") as fh:
+            cfg_a, samples = port.demux_stream(fh)
+            packets = []
+            for info in samples:
+                fh.seek(info.offset)
+                packets.append(fh.read(info.size))
+        bd = port.BatchDecoder(cfg_a, dev)
+        stage, tail, finish, pcm_w = [], [], [], []
+        for lo in range(0, n_pk, 64):
+            win = packets[lo : lo + 64]
+            t0 = time.perf_counter()
+            h = bd.decode_async(win)
+            t1 = time.perf_counter()
+            sync()
+            t2 = time.perf_counter()
+            pcm_w += bd.finish_async(h, win)
+            t3 = time.perf_counter()
+            stage.append((t1 - t0) * 1e3)
+            tail.append((t2 - t1) * 1e3)
+            finish.append((t3 - t2) * 1e3)
+        if b"".join(pcm_w) != src:
+            raise AssertionError("phase 20 track: windows decoded one by one differ")
+        del pcm_w
+        res["window64_ms"] = {"decode_async": summary(stage), "card_tail": summary(tail),
+                              "finish_async": summary(finish),
+                              "sum_s": (sum(stage) + sum(tail) + sum(finish)) / 1e3}
+        if b"".join(bd.decode_packets(packets)) != src:
+            raise AssertionError("phase 20 track: one decode_packets call differs")
+        one = host_times(lambda: bd.decode_packets(packets), runs=runs)
+        res["one_call_s"] = summary(one)
+        no_fallbacks("track, windows")
+        # The same two ways stage by stage, each stage synchronised: summed
+        # over the 101 windows of 64, and for the one call.
+        win_st, pcm_w = {}, []
+        for lo in range(0, n_pk, 64):
+            out_w, st, _ = stage_breakdown(bd.impl, packets[lo : lo + 64])
+            pcm_w += out_w
+            for k, v in st.items():
+                win_st[k] = win_st.get(k, 0.0) + v
+        one_out, one_st, _ = stage_breakdown(bd.impl, packets)
+        if b"".join(pcm_w) != src or b"".join(one_out) != src:
+            raise AssertionError("phase 20 track: a stage-by-stage decode differs")
+        del pcm_w, one_out
+        res["stages_ms_windows64_sum"] = win_st
+        res["stages_ms_one_call"] = one_st
+        # The kernels of the last window (a partial one, the last packet
+        # partial) against their plain versions.
+        res["plain_ms_window64"] = hold_batch(cfg_a, packets[(n_pk - 1) // 64 * 64 :], dev,
+                                              ("packet", "lpc"))
+        print(
+            f"phase 20 {tag} (a) facade, {audio_a:.1f} s of 44.1 kHz 16-bit stereo ({n_pk} "
+            f"packets of F={frame}, the last partial, {len(src)} bytes of PCM) encoded on the "
+            f"card by encode_to_m4a in {res['encode_s']:.3f} s (launches "
+            f"{launches['encode_to_m4a']}); new_decoder(f).read() == source, host fallbacks 0, "
+            f"launches {launches['track']} ({windows} windows of 64); read s (median of {runs} "
+            f"warm runs): windows of 64 {res['read_s_batch64']} = "
+            f"{res['x_realtime_batch64']:.1f}x realtime, windows of 2048 "
+            f"{res['read_s_batch2048']} = {res['x_realtime_batch2048']:.1f}x; first MiB after "
+            f"open, ms {res['first_mib_ms']}; a window of 64 one by one, ms: decode_async "
+            f"{res['window64_ms']['decode_async']}, the card's tail after it "
+            f"{res['window64_ms']['card_tail']}, finish_async {res['window64_ms']['finish_async']}"
+            f" (sum {res['window64_ms']['sum_s']:.3f} s); one decode_packets call on all "
+            f"{n_pk} packets, s {res['one_call_s']}; stage by stage (synchronised, ms), summed "
+            f"over the windows of 64: { {k: round(v, 1) for k, v in win_st.items()} }, the one "
+            f"call: { {k: round(v, 1) for k, v in one_st.items()} }; the last window's "
+            f"packet walk and LPC vs plain: max_abs_err 0 (plain ms "
+            f"{ {k: round(v, 1) for k, v in res['plain_ms_window64'].items()} })"
+        )
+
+        # ---- (b) streaming reads, seeks, decode_file, the CLI ----
+        with open(track, "rb") as fh:
+            dec = port.new_decoder(fh, backend=backend)
+            chunks = []
+            while chunk := dec.read(1 << 20):
+                chunks.append(chunk)
+            if b"".join(chunks) != src:
+                raise AssertionError("phase 20 (b): reads of 1 MiB differ from the source")
+            del chunks
+            rng = random.Random(SEED)
+            bpf, seeks = 2 * C, []
+            for _ in range(5):
+                pos = dec.seek(rng.uniform(0, dec.duration()))
+                at = round(pos * rate)
+                if at % frame or dec.read() != src[at * bpf :]:
+                    raise AssertionError(f"phase 20 (b): the tail after seek({pos}) differs")
+                seeks.append(at)
+            t_exact = (rng.randrange(n_a - frame) + 0.5) / rate
+            at = round(dec.seek_exact(t_exact) * rate)
+            if at != int(t_exact * rate) or dec.read() != src[at * bpf :]:
+                raise AssertionError(f"phase 20 (b): the tail after seek_exact({t_exact}) differs")
+        fmt_f, samples_f = port.decode_file(str(track), backend=backend)
+        if fmt_f != fmt or not np.array_equal(samples_f, pcm_a):
+            raise AssertionError("phase 20 (b): decode_file differs from the source")
+        del samples_f
+        wav_out = d / "track.wav"
+        t0 = time.perf_counter()
+        rc = port_cli.main(["-format", "wav", "-backend", backend, str(track), str(wav_out)])
+        res["cli_wav_s"] = time.perf_counter() - t0
+        got = wav_out.read_bytes()
+        if rc != 0 or got[:44] != wav_header(fmt, len(src)) or got[44:] != src:
+            raise AssertionError(f"phase 20 (b): the CLI's WAV differs (rc {rc})")
+        del got
+        no_fallbacks("(b)")
+        print(
+            f"phase 20 {tag} (b) reads of 1 MiB == source; 5 seeks (frames {seeks}) and "
+            f"seek_exact to frame {at}: each tail == source; decode_file == source; "
+            f"cli main -format wav: header == wav_header, data == source, "
+            f"{res['cli_wav_s']:.3f} s; host fallbacks 0"
+        )
+
+        # ---- (c) a corpus of 12 files through the service ----
+        paths, specs = [], []
+        t0 = time.perf_counter()
+        for i, (sec, r, depth, ch, bs) in enumerate(CORPUS):
+            n = int(sec * r * scale)
+            pcm = music_pcm(n, ch, SEED + 200 + i, depth=depth, dev=dev)
+            paths.append(d / f"c{i}.{'caf' if i % 2 else 'm4a'}")
+            paths[-1].write_bytes(encode_to_m4a(
+                port.PCMFormat(r, depth, ch), pcm, frame_length=frame,
+                spec=EncoderSpec(bytes_shifted=bs), container=paths[-1].suffix[1:], device=dev))
+            specs.append((n, ch, SEED + 200 + i, depth, r))
+        del pcm
+        res["corpus_encode_s"] = time.perf_counter() - t0
+        audio_c = sum(n / r for n, _, _, _, r in specs)
+        pcm_c = sum(n * ch * (2 if dp == 16 else 3) for n, ch, _, dp, _ in specs)
+        seen = set()
+        port.reset_launch_counts()
+        for f in port.iter_decode_corpus(paths, backend=backend):
+            n, ch, seed, depth, _ = specs[f.index]
+            if f.index in seen or f.pcm != pcm_bytes(music_pcm(n, ch, seed, depth=depth, dev=dev), depth):
+                raise AssertionError(f"phase 20 (c): file {f.index} differs from its source")
+            seen.add(f.index)
+        launches["corpus"] = launched("corpus", ("packet", "lpc", "raw_read"), port.launch_counts())
+        if seen != set(range(len(paths))):
+            raise AssertionError(f"phase 20 (c): files {sorted(seen)} came back")
+        no_fallbacks("(c)")
+        # The raw read on the service's batch of 256 that holds the last
+        # packet of each group's first file (and the next file's first ones).
+        res["plain_ms_raw_read_corpus"] = {}
+        for first, label in ((4, "hires"), (8, "7.1")):
+            group_pk, cfgs = [], []
+            for path in paths[first : first + 2]:
+                with open(path, "rb") as fh:
+                    cfg_g, samples = port.demux_stream(fh)
+                    cfgs.append((cfg_g, len(samples)))
+                    for info in samples:
+                        fh.seek(info.offset)
+                        group_pk.append(fh.read(info.size))
+            if cfgs[0][0] != cfgs[1][0]:
+                raise AssertionError(f"phase 20 (c): files {first} and {first + 1} differ in config")
+            at = (cfgs[0][1] - 1) // 256 * 256
+            res["plain_ms_raw_read_corpus"][label] = hold_batch(
+                cfg_g, group_pk[at : at + 256], dev, ("raw_read",))["raw_read"]
+            del group_pk
+        per_group = {}
+        for n, ch, _, depth, r in specs:
+            per_group[(ch, depth, r)] = per_group.get((ch, depth, r), 0) + -(-n // frame)
+        batches = sum(-(-p // 256) for p in per_group.values())
+        if launches["corpus"]["packet"] != batches:
+            raise AssertionError(f"phase 20 (c): {launches['corpus']} launches, {batches} batches")
+        ts = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            got = sum(len(f.pcm) for f in port.iter_decode_corpus(paths, backend=backend))
+            ts.append(time.perf_counter() - t0)
+            if got != pcm_c:
+                raise AssertionError(f"phase 20 (c): {got} bytes of PCM, not {pcm_c}")
+        no_fallbacks("(c), timed")
+        res["corpus_s"] = summary(ts)
+        res["corpus_x_realtime"] = audio_c / statistics.median(ts)
+        res["corpus_batches"] = batches
+        print(
+            f"phase 20 {tag} (c) iter_decode_corpus over {len(paths)} files (half M4A, half CAF; "
+            f"{audio_c:.1f} s of audio, {pcm_c} bytes of PCM; encoded on the card in "
+            f"{res['corpus_encode_s']:.3f} s): each file == its source as it came, host "
+            f"fallbacks 0, {batches} batches of up to 256, launches {launches['corpus']}; s "
+            f"(median of {runs} runs) {res['corpus_s']} = {res['corpus_x_realtime']:.1f}x "
+            f"realtime; raw read vs plain on a cross-file batch of 256, hi-res and 7.1: "
+            f"max_abs_err 0 (plain ms {res['plain_ms_raw_read_corpus']})"
+        )
+
+        # ---- (d) alac-encode on a WAV of the track's first 60 s ----
+        n_d = min(n_a, int(60 * rate))
+        wav_in, m4a_out = d / "in.wav", d / "enc.m4a"
+        with open(wav_in, "wb") as fh:
+            write_wav(fh, fmt, src[: n_d * 4])
+        port.reset_launch_counts()
+        rc = port_cli.encode_main(["-frame", str(frame), "-backend", backend, str(wav_in),
+                                   str(m4a_out)])
+        launches["alac_encode"] = launched(
+            "alac-encode", ("lpc_forward", "encode"), port.launch_counts())
+        with open(m4a_out, "rb") as fh:
+            back = port.new_decoder(fh, backend=backend).read()
+        if rc != 0 or back != src[: n_d * 4]:
+            raise AssertionError(f"phase 20 (d): alac-encode's file does not decode to its WAV "
+                                 f"(rc {rc})")
+        no_fallbacks("(d)")
+        print(f"phase 20 {tag} (d) alac-encode of {n_d / rate:.1f} s ({m4a_out.stat().st_size} "
+              f"bytes, launches {launches['alac_encode']}) decoded on the card == its WAV")
+    finally:
+        TorchBatchDecoder.finish_async = plain_finish
+        tmp.cleanup()
+    return res, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -441,11 +885,9 @@ def main() -> int:
     from saprobe_alac_tpu_torch import _build, native
     from saprobe_alac_tpu_torch.ops import encode_device, encode_kernel, lpc_kernel, walk_kernel
     from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
-    from saprobe_alac_tpu_torch.ops.epilogue import extract_shift, finish_packed, shift_reads
-    from saprobe_alac_tpu_torch.ops.lpc import lpc_lanes
+    from saprobe_alac_tpu_torch.ops.epilogue import shift_reads
     from saprobe_alac_tpu_torch.ops.raw_reader import raw_read, raw_read_reference
     from saprobe_alac_tpu_torch.ops.walk import walk_batch
-    from saprobe_alac_tpu_torch.encoder.spec import CHANNEL_LAYOUT_OFFSETS
 
     dev = torch.device("cuda")
     card = card_line()
@@ -514,27 +956,6 @@ def main() -> int:
     def walk(c, words, sizes):
         return walk_batch(words, sizes, F=c.frame_length, C=c.num_channels, depth=c.bit_depth,
                           pb=c.pb, mb=c.mb, kb=c.kb)
-
-    def lanes(w, channels=C):
-        """The LPC kernel's inputs as the main path builds them."""
-        L = w.ns.numel() * channels
-        lane = (
-            w.order.T.reshape(L), w.mode.T.reshape(L), w.den.T.reshape(L),
-            w.cb.T.reshape(L), w.ns.repeat(channels), w.coefs.transpose(0, 1).reshape(L, 32),
-        )
-        return (w.res, *lpc_lanes(*lane))
-
-    def packet_args(c, words, sizes):
-        """The packet kernel's inputs as walk_batch builds them."""
-        offsets = torch.tensor(CHANNEL_LAYOUT_OFFSETS[c.num_channels - 1], dtype=i32, device=dev)
-        kw = dict(kb=c.kb, F=c.frame_length, C=c.num_channels, depth=c.bit_depth, pb_cfg=c.pb,
-                  mb_cfg=c.mb)
-        return (words, sizes, offsets), kw
-
-    def packet_diff(got, want):
-        """Max abs difference over every output of the packet walk, every
-        lane (error lanes too: both run the same walk)."""
-        return max(amax((a.to(i64) - b.to(i64)).abs()) for a, b in zip(got, want))
 
     def check_walk_lpc(c, words, sizes, w, walker="element"):
         """A walk kernel (the element kernel, or the packet kernel the
@@ -1367,38 +1788,22 @@ def main() -> int:
 
     # One call stage by stage, each synchronised and timed by the host clock:
     # where the host holds the card back.
-    def stage_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    impl = sdec.impl
-    (swords, ssizes), ms_stage = stage_ms(lambda: impl._stage(spkts))
-    sw, ms_walk = stage_ms(lambda: walk_batch(
-        swords, ssizes, F=F, C=8, depth=24, pb=scfg.pb, mb=scfg.mb, kb=scfg.kb))
-    s_lpc_in = lanes(sw, 8)
-    smix, ms_lpc = stage_ms(lambda: lpc_kernel.lpc_fir(*s_lpc_in, F=F, taps=9)[:F])
-    sshift, ms_shift = stage_ms(lambda: extract_shift(
-        swords, sw.shift_base, sw.bs, sw.role, sw.ns, F=F, C=8))
-    spacked, ms_finish = stage_ms(lambda: finish_packed(
-        smix, sshift, sw.bs, sw.mixbits, sw.mixres, sw.role, sw.out_chan, sw.filled, C=8,
-        depth=24))
-    (shost, sbuf), ms_down = stage_ms(lambda: impl._download(spacked))
-    ns_host = sw.ns.cpu().numpy()
-    _, ms_trim = stage_ms(lambda: [impl._to_bytes(shost[k], int(ns_host[k])) for k in range(n_pk)])
+    s_out, st, down_bytes = stage_breakdown(sdec.impl, spkts)
+    check_decode(s_out, spcm, 24)
+    del s_out
     print(
         f"phase 15 {tag} one 7.1 call stage by stage (host clock, synchronised, ms): pack and "
-        f"upload {ms_stage:.1f}; walk (packet kernel) {ms_walk:.1f}; lpc lanes and kernel "
-        f"{ms_lpc:.1f}; shift reads {ms_shift:.1f}; unmix, re-insert, remap and 3-byte packing "
-        f"{ms_finish:.1f}; download of {spacked.numel() * 4} bytes {ms_down:.1f}; trim to "
-        f"{n_pk} bytes objects {ms_trim:.1f}"
+        f"upload {st['pack_upload']:.1f}; walk (packet kernel) {st['walk']:.1f}; lpc lanes "
+        f"{st['lpc_lanes']:.1f}; lpc kernel {st['lpc']:.1f}; shift reads "
+        f"{st['shift_reads']:.1f}; unmix, re-insert, remap and 3-byte packing "
+        f"{st['epilogue']:.1f}; download of {down_bytes} bytes {st['download']:.1f}; trim to "
+        f"{n_pk} bytes objects {st['trim']:.1f}"
     )
-    impl._release(sbuf)
-    del smix, sshift, spacked, shost, sbuf
 
     # ---- phase 16: the 7.1 path's kernels at its shapes ----
+    swords, ssizes = sdec.impl._stage(spkts)
+    sw = walk(scfg, swords, ssizes)
+    s_lpc_in = lanes(sw, 8)
     p_args, p_kw = packet_args(scfg, swords, ssizes)
     got = walk_kernel.dense_packet(*p_args, **p_kw)
     # The plain version on the same batch: five elements a packet, eight
@@ -1706,6 +2111,12 @@ def main() -> int:
           f"(phase 4's packets, three slices a thread, {n_big} packets decoded): every slice's "
           f"bytes == source PCM, host fallbacks 0")
 
+    # ---- phase 20: the facade, the CLI and the corpus service at full size ----
+    t20 = time.perf_counter()
+    res20, l20 = facade_phase(port, tag, dev)
+    res20["phase_s"] = time.perf_counter() - t20
+    print(f"phase 20 {tag} numbers: {json.dumps(res20)}")
+
     def case_fields(res_by_label):
         """Phase 18's times of the LPC's other bodies, as JSON keys."""
         return {f"{key}_{label}_F{F}": val for label, res in res_by_label.items()
@@ -1734,6 +2145,9 @@ def main() -> int:
             "source": "saprobe_alac_tpu_torch/csrc/lpc_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/lpc_kernel.py:91",
             "launches": launches["lpc"], "max_abs_err": l_err,
+            "launches_phase20_track": l20["track"]["lpc"],
+            "launches_phase20_corpus": l20["corpus"]["lpc"],
+            "plain_ms_phase20_window64": res20["plain_ms_window64"]["lpc"],
             "ms": statistics.median(t_lpc), "ms_one": statistics.median(t_lpc1),
             "plain_ms": lpc_plain_ms,
             "bound_ms": lpc_bound[0], "bound_by": lpc_bound[1], "library_ms": None,
@@ -1752,6 +2166,9 @@ def main() -> int:
             "source": "saprobe_alac_tpu_torch/csrc/raw_reader_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:1252",
             "launches": h_launches["raw_read"], "max_abs_err": r_err,
+            "launches_phase20_corpus": l20["corpus"]["raw_read"],
+            "plain_ms_phase20_corpus_hires": res20["plain_ms_raw_read_corpus"]["hires"],
+            "plain_ms_phase20_corpus_71": res20["plain_ms_raw_read_corpus"]["7.1"],
             "ms": statistics.median(t_rr), "plain_ms": statistics.median(t_rr_plain),
             "bound_ms": rr_bound[0], "bound_by": rr_bound[1], "library_ms": None,
             "ms_warm": statistics.median(t_rr_warm),
@@ -1764,6 +2181,8 @@ def main() -> int:
             "source": "saprobe_alac_tpu_torch/csrc/lpc_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/lpc_kernel.py:91 (forward=True)",
             "launches": e_launches["lpc_forward"], "max_abs_err": fwd_err,
+            "launches_phase20_encode_to_m4a": l20["encode_to_m4a"]["lpc_forward"],
+            "launches_phase20_alac_encode": l20["alac_encode"]["lpc_forward"],
             "ms": statistics.median(t_fwd), "ms_one": statistics.median(t_fwd1),
             "plain_ms": fwd_plain_ms,
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None,
@@ -1777,6 +2196,8 @@ def main() -> int:
             "source": "saprobe_alac_tpu_torch/csrc/encode_kernel.cu",
             "replaces": "saprobe_alac_tpu/ops/encode_kernel.py:81",
             "launches": e_launches["encode"], "max_abs_err": enc_err,
+            "launches_phase20_encode_to_m4a": l20["encode_to_m4a"]["encode"],
+            "launches_phase20_alac_encode": l20["alac_encode"]["encode"],
             "ms": statistics.median(t_enc), "plain_ms": enc_plain_ms,
             "bound_ms": enc_bound[0], "bound_by": enc_bound[1], "library_ms": None,
             "lanes": lanes13, "ns_per_sample": clk_enc[0], "cycles_per_sample": clk_enc[1],
@@ -1789,6 +2210,9 @@ def main() -> int:
             "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:747 (the slot loop around it, "
                         "saprobe_alac_tpu/ops/walk.py:1110)",
             "launches": s_launches["packet"], "max_abs_err": max(pw_err, p_err, pk_err),
+            "launches_phase20_track": l20["track"]["packet"],
+            "launches_phase20_corpus": l20["corpus"]["packet"],
+            "plain_ms_phase20_window64": res20["plain_ms_window64"]["packet"],
             "ms": statistics.median(t_pk), "plain_ms": pk_plain_ms,
             "bound_ms": pk_bound[0], "bound_by": pk_bound[1], "library_ms": None,
             "ns_per_row": clk_pk[0], "cycles_per_row": clk_pk[1], "sm_mhz": clk_pk[2],

@@ -1,44 +1,62 @@
-"""saprobe_alac_tpu_torch — batched ALAC decode and encode in PyTorch and CUDA.
+"""saprobe_alac_tpu_torch — ALAC decode and encode in PyTorch and CUDA.
 
-A port of saprobe_alac_tpu's `BatchDecoder.decode_packets` for 16-, 20-, 24-
-and 32-bit streams of C = 1..8 channels in every element layout
-(bytesShifted 0, 1 and 2), and of its device encoder
-`encode_packets_device` (every layout C = 1..8).  Every Pallas kernel of
+A port of saprobe_alac_tpu to one NVIDIA card.  Its public surface is the
+JAX package's: the streaming ``Decoder`` (`new_decoder`, `read`, `seek`,
+`seek_exact`, `format`, `duration`, `position`) over M4A/MP4 and CAF files,
+`decode_file`, the corpus service (`decode_corpus`, `iter_decode_corpus`),
+`parse_magic_cookie`, `PacketDecoder` and the batch API
+`BatchDecoder.decode_packets` for 16-, 20-, 24- and 32-bit streams of
+C = 1..8 channels in every element layout; the encoder
+(`encoder.encode_packets`, `encode_to_m4a`, `build_m4a`, `build_caf`) and
+the CLI (`python -m saprobe_alac_tpu_torch.cli`).  Every Pallas kernel of
 the JAX package (element walk, its multi-element packet walk, LPC in both
 directions, shift-region raw reader, Golomb-Rice encode, and the parse-free
 entropy walk `dense_entropy`) is a hand-written CUDA kernel for Hopper
 (csrc/, built with nvcc at first use); the glue around them is plain
-PyTorch.  `BatchDecoder(cfg)` and `encode_packets_device(cfg, spec, pcms)`
-run on the card; with ``"cpu"`` they run every kernel's plain PyTorch
-version.  The host side (packing, host decode, host encoder) is the repo's
-C++ core in native/, built with g++ at first use.  This package imports neither JAX
-nor anything of saprobe_alac_tpu: it keeps its own copies of what it needs.
+PyTorch.  Every entry point runs on the card and raises without one unless
+the caller asks for ``"cpu"`` (every kernel's plain PyTorch version) or
+``"native"`` (the repo's C++ core in native/, built with g++ at first use,
+which also packs batches and decodes the packets the card flags).  This
+package imports neither JAX nor anything of saprobe_alac_tpu: it keeps its
+own copies of what it needs.
 """
 
 from ._build import launch_counts, reset_launch_counts
-from .config import PacketConfig
-from .decoder import BatchDecoder
+from .caf import build_caf
+from .config import PacketConfig, parse_magic_cookie
+from .decode import Decoder, decode_file, demux_stream, new_decoder
+from .decoder import BatchDecoder, PacketDecoder
 from .encoder import ChannelSpec, EncoderSpec, encode_packets
 from .errors import (
     AlacError,
     BitstreamOverrun,
     ConfigError,
     DecodeError,
+    InvalidCookie,
     InvalidHeader,
     InvalidShift,
+    NoTrackError,
     SampleOverrun,
     UnsupportedBitDepth,
     UnsupportedElement,
     UnsupportedSpec,
+    UnsupportedVersion,
 )
+from .formats import ALAC_BIT_DEPTHS, PCMFormat, bytes_per_sample
 from .ops.batch import TorchBatchDecoder
 from .ops.encode_device import encode_packets_device
 from .ops.walk_kernel import dense_entropy
+from .service import DecodedFile, decode_corpus, iter_decode_corpus
+
+__version__ = "0.1.0"
 
 __all__ = [
-    "AlacError", "BatchDecoder", "BitstreamOverrun", "ChannelSpec", "ConfigError",
-    "DecodeError", "EncoderSpec", "InvalidHeader", "InvalidShift", "PacketConfig",
-    "SampleOverrun", "TorchBatchDecoder", "UnsupportedBitDepth", "UnsupportedElement",
-    "UnsupportedSpec", "dense_entropy", "encode_packets", "encode_packets_device", "launch_counts",
-    "reset_launch_counts",
+    "ALAC_BIT_DEPTHS", "AlacError", "BatchDecoder", "BitstreamOverrun", "ChannelSpec",
+    "ConfigError", "DecodeError", "DecodedFile", "Decoder", "EncoderSpec", "InvalidCookie",
+    "InvalidHeader", "InvalidShift", "NoTrackError", "PCMFormat", "PacketConfig",
+    "PacketDecoder", "SampleOverrun", "TorchBatchDecoder", "UnsupportedBitDepth",
+    "UnsupportedElement", "UnsupportedSpec", "UnsupportedVersion", "build_caf",
+    "bytes_per_sample", "decode_corpus", "decode_file", "dense_entropy", "demux_stream",
+    "encode_packets", "encode_packets_device", "iter_decode_corpus", "launch_counts",
+    "new_decoder", "parse_magic_cookie", "reset_launch_counts",
 ]

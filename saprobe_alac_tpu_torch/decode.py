@@ -1,0 +1,176 @@
+"""Streaming M4A/CAF decoder facade.
+
+Counterpart of saprobe_alac_tpu/decode.py (reference decode.go:32-190): a
+file-like reader over decoded PCM with O(1) packet-aligned seek,
+duration/position arithmetic and on-demand decode.  On the card the facade
+decodes a window of packets as one batch, and dispatches the next window
+before it waits for the current one (`_fill_buffer`).
+
+``backend``: ``"cuda"`` (default; raises without a card) and ``"cpu"`` (the
+kernels' plain versions) decode windows through `BatchDecoder`, also
+one-packet windows when ``batch_size == 1``; ``"native"`` decodes windows
+on the host by the C++ core, and single packets by `PacketDecoder` when
+``batch_size == 1``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import BinaryIO
+
+from .caf import find_alac_track_caf, sniff_container
+from .config import parse_magic_cookie
+from .decoder import BatchDecoder, PacketDecoder
+from .formats import PCMFormat, bytes_per_sample
+from .mp4 import SampleInfo, find_alac_track
+from .utils.pcmconv import pcm_bytes_to_array
+
+
+def demux_stream(reader: BinaryIO):
+    """Sniff the container (MP4/M4A or CAF) and demux the ALAC track:
+    (PacketConfig, flat sample table)."""
+    if sniff_container(reader) == "caf":
+        cookie, samples = find_alac_track_caf(reader)
+    else:
+        cookie, samples = find_alac_track(reader)
+    return parse_magic_cookie(cookie), samples
+
+
+class Decoder:
+    """Streams decoded PCM from an ALAC M4A/MP4 or CAF source.
+
+    The container (sample table, config) is parsed up front; PCM is decoded
+    in packet windows on demand by :meth:`read`."""
+
+    def __init__(self, reader: BinaryIO, backend="cuda", batch_size: int = 64):
+        config, samples = demux_stream(reader)
+        self._reader = reader
+        self.config = config
+        self._samples: list[SampleInfo] = samples
+        self._sample_idx = 0
+        self._buf = b""
+        self._buf_off = 0
+        self._eof = False
+        self._batch_size = max(1, batch_size)
+        if backend == "native" and self._batch_size == 1:
+            self._packet_dec, self._batch_dec = PacketDecoder(config, "native"), None
+        else:
+            self._packet_dec, self._batch_dec = None, BatchDecoder(config, backend)
+        # The dispatched next window: (first sample index, packets, handle).
+        self._prefetch = None
+
+    # --- Format / timing (decode.go:78-97) ---
+
+    def format(self) -> PCMFormat:
+        return PCMFormat(self.config.sample_rate, self.config.bit_depth, self.config.num_channels)
+
+    def duration(self) -> float:
+        """Total stream duration in seconds (packet-count approximation)."""
+        return len(self._samples) * self.config.frame_length / self.config.sample_rate
+
+    def position(self) -> float:
+        """Current playback position in seconds."""
+        return self._sample_idx * self.config.frame_length / self.config.sample_rate
+
+    # --- Seek (decode.go:103-124) ---
+
+    def seek(self, t: float) -> float:
+        """Seek to time ``t`` seconds; returns the actual (packet-aligned)
+        position.  Negative seeks clamp to the start, past-end to the end."""
+        target = int(t * self.config.sample_rate) // self.config.frame_length
+        target = max(0, min(target, len(self._samples)))
+        self._sample_idx = target
+        self._buf = b""
+        self._buf_off = 0
+        self._eof = target >= len(self._samples)
+        self._prefetch = None  # the dispatched window no longer follows
+        return target * self.config.frame_length / self.config.sample_rate
+
+    def seek_exact(self, t: float) -> float:
+        """Sample-accurate seek: positions on the sample for time ``t`` by
+        decoding and dropping the packet's prefix."""
+        target_sample = max(0, int(t * self.config.sample_rate))
+        pos = self.seek(t)
+        aligned_sample = round(pos * self.config.sample_rate)
+        skip = target_sample - aligned_sample
+        if skip > 0 and not self._eof:
+            bpf = self.config.num_channels * bytes_per_sample(self.config.bit_depth)
+            skipped = len(self.read(skip * bpf)) // bpf
+            return (aligned_sample + skipped) / self.config.sample_rate
+        return pos
+
+    # --- Read (decode.go:127-190) ---
+
+    def read(self, n: int = -1) -> bytes:
+        """Read up to ``n`` decoded PCM bytes (all that remain if n < 0);
+        b"" at the end of the stream."""
+        if n is None or n < 0:
+            chunks = []
+            while chunk := self.read(1 << 20):
+                chunks.append(chunk)
+            return b"".join(chunks)
+        out = bytearray()
+        while len(out) < n:
+            if self._buf_off < len(self._buf):
+                take = min(n - len(out), len(self._buf) - self._buf_off)
+                out += self._buf[self._buf_off : self._buf_off + take]
+                self._buf_off += take
+                continue
+            if self._eof or self._sample_idx >= len(self._samples):
+                self._eof = True
+                break
+            self._fill_buffer()
+        return bytes(out)
+
+    def _read_packets(self, start: int, count: int) -> list[bytes]:
+        packets = []
+        for info in self._samples[start : start + count]:
+            self._reader.seek(info.offset)
+            data = self._reader.read(info.size)
+            if len(data) < info.size:
+                raise EOFError(f"short read for packet {start}: {len(data)} < {info.size}")
+            packets.append(data)
+        return packets
+
+    def _fill_buffer(self) -> None:
+        """Decode the next window into the drain buffer.  Through
+        `BatchDecoder` the window after it is dispatched before this one is
+        waited for, so its staging and kernels overlap this one's download
+        and trim; a seek drops it."""
+        if self._batch_dec is None:
+            (packet,) = self._read_packets(self._sample_idx, 1)
+            self._buf = self._packet_dec.decode_packet(packet)
+            self._buf_off = 0
+            self._sample_idx += 1
+            return
+        if self._prefetch is not None and self._prefetch[0] == self._sample_idx:
+            _, packets, handle = self._prefetch
+        else:
+            packets = self._read_packets(self._sample_idx, self._batch_size)
+            handle = self._batch_dec.decode_async(packets)
+        self._prefetch = None
+        nxt = self._sample_idx + len(packets)
+        if nxt < len(self._samples):
+            nxt_packets = self._read_packets(nxt, self._batch_size)
+            self._prefetch = (nxt, nxt_packets, self._batch_dec.decode_async(nxt_packets))
+        self._buf = b"".join(self._batch_dec.finish_async(handle, packets))
+        self._buf_off = 0
+        self._sample_idx = nxt
+
+
+def new_decoder(reader: BinaryIO, backend="cuda", batch_size: int = 64) -> Decoder:
+    """Open an M4A/MP4 or CAF stream of ALAC audio (reference NewDecoder)."""
+    return Decoder(reader, backend=backend, batch_size=batch_size)
+
+
+def decode_file(path_or_reader, backend="cuda"):
+    """Decode a whole M4A/CAF, from a path or a binary file object, to
+    (PCMFormat, (n, channels) int64 samples)."""
+    if hasattr(path_or_reader, "read"):
+        cm = contextlib.nullcontext(path_or_reader)
+    else:
+        cm = open(path_or_reader, "rb")
+    with cm as f:
+        dec = Decoder(f, backend=backend)
+        fmt = dec.format()
+        return fmt, pcm_bytes_to_array(fmt, dec.read())

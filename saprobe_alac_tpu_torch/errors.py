@@ -1,10 +1,10 @@
 """Error classes of the port.
 
-The port's own copy of the decode-side classes of saprobe_alac_tpu/errors.py
-(reference errors.go:25-33, internal/alac/errors.go:25-32): the same names
-and the same hierarchy, so callers catch a broad category (`ConfigError`,
-`DecodeError`) or a narrow condition (`BitstreamOverrun`, ...).  The
-container errors stay with the JAX package until the port reads containers.
+The port's own copy of saprobe_alac_tpu/errors.py (reference
+errors.go:25-33, internal/alac/errors.go:25-32, internal/mp4/errors.go:25-33):
+the same names and the same hierarchy, so callers catch a broad category
+(`ConfigError`, `NoTrackError`, `DecodeError`) or a narrow condition
+(`BitstreamOverrun`, `NoStsz`, ...).  `UnsupportedSpec` is the port's own.
 """
 
 from __future__ import annotations
@@ -18,12 +18,24 @@ class ConfigError(AlacError):
     """Invalid or unsupported ALAC configuration."""
 
 
-class UnsupportedSpec(ConfigError):
-    """An EncoderSpec that the C++ host encoder cannot express."""
+class NoTrackError(AlacError):
+    """No usable ALAC track was found in the container."""
 
 
 class DecodeError(AlacError):
     """Failure during packet decoding."""
+
+
+class InvalidCookie(ConfigError):
+    """Magic cookie is too short or malformed."""
+
+
+class UnsupportedVersion(ConfigError):
+    """ALACSpecificConfig compatibleVersion > 0."""
+
+
+class UnsupportedSpec(ConfigError):
+    """An EncoderSpec that the C++ host encoder cannot express."""
 
 
 class UnsupportedBitDepth(ConfigError):
@@ -48,6 +60,34 @@ class BitstreamOverrun(DecodeError):
 
 class SampleOverrun(DecodeError):
     """Decoded sample count exceeds the frame buffer."""
+
+
+class Mp4Error(NoTrackError):
+    """Base class for MP4 container parse failures."""
+
+
+class NoAlacTrack(Mp4Error):
+    """No ALAC track found in the container."""
+
+
+class InvalidSampleEntry(Mp4Error):
+    """Malformed 'alac' sample entry in stsd."""
+
+
+class InvalidBoxSize(Mp4Error):
+    """Box size smaller than its header."""
+
+
+class NoChunkOffset(Mp4Error):
+    """Missing or invalid stco/co64 box."""
+
+
+class NoStsc(Mp4Error):
+    """Missing or invalid stsc box."""
+
+
+class NoStsz(Mp4Error):
+    """Missing or invalid stsz box."""
 
 
 #: The C++ host core's error codes (native/alac_core.cpp:28-35) and the class

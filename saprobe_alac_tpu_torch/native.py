@@ -2,9 +2,10 @@
 native/alac_encode.cpp), built by g++ into ``_build/`` at first use.
 
 The port's host side: the threaded packer that stages a batch as big-endian
-words, the exact host decode for packets the device flags, and the packet
-encoder (fixtures, and the host backend of `encoder.encode_packets`).  ``-fwrapv`` is required: the codec relies
-on wrapping int32 arithmetic as Go does.  A failed build raises.
+words, the exact host decode (one packet, or a batch: the packets the device
+flags and the ``"native"`` backend), and the packet encoder (fixtures, and
+the host backend of `encoder.encode_packets`).  ``-fwrapv`` is required: the
+codec relies on wrapping int32 arithmetic as Go does.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 
 from ._build import build_library
 from .encoder.spec import ChannelSpec, EncoderSpec
-from .errors import UnsupportedSpec
+from .errors import UnsupportedSpec, core_error
 
 _NATIVE = Path(__file__).resolve().parents[1] / "native"
 _SOURCES = [_NATIVE / "alac_core.cpp", _NATIVE / "alac_encode.cpp"]
@@ -66,6 +67,8 @@ def load():
         P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         lib.alac_pack_packets.restype = I32
         lib.alac_pack_packets.argtypes = [P, P, P, I32, I32, P]
+        lib.alac_decode_packet.restype = I32
+        lib.alac_decode_packet.argtypes = [P, P, I32, P, I64, P]
         lib.alac_decode_batch.restype = I32
         lib.alac_decode_batch.argtypes = [P, P, P, P, I32, P, I64, P, P, I32]
         lib.alac_encode_packet.restype = I32
@@ -100,6 +103,22 @@ def pack_packets(packets: Sequence[bytes], rows: int, width: int) -> np.ndarray:
         out.ctypes.data,
     )
     return out.view(np.int32)
+
+
+def decode_packet(config, packet: bytes) -> bytes:
+    """One packet's interleaved LE PCM by the core (the counterpart of
+    saprobe_alac_tpu.native.decode_packet); a packet the core rejects
+    raises the class of its error code."""
+    cap = config.frame_length * config.num_channels * _BYTES_PER_SAMPLE[config.bit_depth]
+    out = np.empty(cap, dtype=np.uint8)
+    out_len = ctypes.c_int32(0)
+    code = load().alac_decode_packet(
+        ctypes.byref(_config(config)), packet, len(packet), out.ctypes.data, cap,
+        ctypes.byref(out_len),
+    )
+    if code != 0:
+        raise core_error(code)
+    return out[: out_len.value].tobytes()
 
 
 def decode_batch(config, packets: Sequence[bytes]):

@@ -1,0 +1,167 @@
+"""Corpus decode service: many files, batched across the card, bounded RAM.
+
+Counterpart of saprobe_alac_tpu/service.py.  The single-file facade batches
+packets within one stream; this service goes one level up, for mass
+transcode and dataset ingest: it demuxes files one at a time, groups their
+packets by PacketConfig (one decoder per config), decodes each group in
+cross-file batches and reassembles each file's PCM.  Packets from different
+files share batches freely because every packet is self-contained (SURVEY
+§2.3).
+
+The pipeline is windowed: at any moment it holds one file's compressed
+packets being queued, at most ``batch_size`` pending packets per config
+group, ``inflight`` dispatched batches, and the decoded PCM of files whose
+packets are still in flight.  RAM is O(batch window + largest single file),
+whatever the corpus size, and the staging of the next batch overlaps the
+card's work on the previous ones through ``BatchDecoder.decode_async``.
+``backend`` is the `BatchDecoder` device: ``"cuda"`` (default), ``"cpu"``
+or ``"native"``.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+from typing import BinaryIO, Iterator, Sequence
+
+import numpy as np
+
+from .config import PacketConfig
+from .decode import demux_stream
+from .decoder import BatchDecoder
+from .formats import PCMFormat
+from .utils.pcmconv import pcm_bytes_to_array
+
+
+@dataclass
+class DecodedFile:
+    """One corpus entry's decode result."""
+
+    source: str
+    format: PCMFormat
+    pcm: bytes  # interleaved LE signed PCM
+    index: int = 0  # position in the input sequence
+
+    def samples(self) -> np.ndarray:
+        return pcm_bytes_to_array(self.format, self.pcm)
+
+
+def _open_stream(src) -> tuple[str, BinaryIO]:
+    if hasattr(src, "read"):
+        return getattr(src, "name", "<stream>"), src
+    return str(src), open(src, "rb")
+
+
+@dataclass
+class _FileState:
+    index: int
+    name: str
+    format: PCMFormat
+    remaining: int  # packets not yet decoded
+    chunks: list = field(default_factory=list)  # per-packet PCM, file order
+
+
+@dataclass
+class _Group:
+    """Per-PacketConfig batching state."""
+
+    decoder: BatchDecoder
+    pending: deque = field(default_factory=deque)  # (_FileState, packet bytes)
+    inflight: deque = field(default_factory=deque)  # (handle, packets, states)
+
+
+def iter_decode_corpus(
+    sources: Sequence,
+    backend="cuda",
+    batch_size: int = 256,
+    inflight: int = 2,
+) -> Iterator[DecodedFile]:
+    """Stream-decode a corpus of M4A/CAF files with cross-file batching.
+
+    ``sources``: paths or binary file objects.  Files whose cookies match
+    share a decoder and its batches.  Yields each ``DecodedFile`` as soon
+    as its last packet lands (completion order; ``DecodedFile.index`` gives
+    the input position).  RAM stays bounded by the batching window — see the
+    module docstring — so corpora far larger than host memory stream through.
+    """
+    groups: dict[PacketConfig, _Group] = {}
+
+    def finish_oldest(g: _Group):
+        handle, pkts, states = g.inflight.popleft()
+        decoded = g.decoder.finish_async(handle, pkts)
+        done = []
+        for fs, pcm in zip(states, decoded):
+            fs.chunks.append(pcm)
+            fs.remaining -= 1
+            if fs.remaining == 0:
+                done.append(fs)
+        return done
+
+    def dispatch(g: _Group, count: int):
+        """Move ``count`` pending packets into a dispatched batch; returns
+        any files completed while draining the in-flight window."""
+        items = [g.pending.popleft() for _ in range(count)]
+        states = [fs for fs, _ in items]
+        pkts = [p for _, p in items]
+        g.inflight.append((g.decoder.decode_async(pkts), pkts, states))
+        done = []
+        while len(g.inflight) > inflight:
+            done.extend(finish_oldest(g))
+        return done
+
+    for index, src in enumerate(sources):
+        name, reader = _open_stream(src)
+        try:
+            config, samples = demux_stream(reader)
+            fmt = PCMFormat(
+                sample_rate=config.sample_rate,
+                bit_depth=config.bit_depth,
+                channels=config.num_channels,
+            )
+            fs = _FileState(index, name, fmt, remaining=len(samples))
+            if config not in groups:
+                groups[config] = _Group(BatchDecoder(config, backend))
+            g = groups[config]
+            if not samples:
+                yield DecodedFile(name, fmt, b"", index)
+                continue
+            for info in samples:
+                reader.seek(info.offset)
+                data = reader.read(info.size)
+                if len(data) < info.size:
+                    raise EOFError(f"{name}: short packet read")
+                g.pending.append((fs, data))
+                if len(g.pending) >= batch_size:
+                    for d in dispatch(g, batch_size):
+                        yield DecodedFile(d.name, d.format, b"".join(d.chunks), d.index)
+        finally:
+            if not hasattr(src, "read"):
+                reader.close()
+
+    # Tail flush: dispatch remaining partial batches, drain every window.
+    for g in groups.values():
+        done = []
+        while g.pending:
+            done.extend(dispatch(g, min(batch_size, len(g.pending))))
+        while g.inflight:
+            done.extend(finish_oldest(g))
+        for d in done:
+            yield DecodedFile(d.name, d.format, b"".join(d.chunks), d.index)
+
+
+def decode_corpus(
+    sources: Sequence,
+    backend="cuda",
+    batch_size: int = 256,
+) -> list[DecodedFile]:
+    """Decode a corpus of M4A/CAF files with cross-file batching.
+
+    Returns results in input order.  This materializes every file's PCM at
+    once; for corpora larger than host memory use :func:`iter_decode_corpus`,
+    which this wraps.
+    """
+    results = sorted(
+        iter_decode_corpus(sources, backend=backend, batch_size=batch_size),
+        key=lambda d: d.index,
+    )
+    return results
