@@ -151,8 +151,31 @@ Phases, one line each (any failure raises and exits non-zero):
      tolerance 0; (d) alac-encode
      on a WAV of (a)'s first 60 s, decoded back on the card equal to it.
      No host fallback anywhere.
+ 21. the paths beside the main one (`new_paths_phase`), at the main paths'
+     sizes, tolerance 0 on bytes, no host fallback on clean music, each path
+     driven with the launch counts reset just before and read just after:
+     (a) phases 4's, 7's and 15's batches through TorchBatchDecoder(cfg,
+     tight=True): bytes equal to the padded path's and the source, one
+     launch of each path kernel a call; H2D bytes and decode_packets
+     (median of 5 warm runs) both ways; phase 3's ragged F=512 batch
+     (partial packet, escapes, orders 12 and 31, two corrupted packets):
+     the same error lanes, the same outcome, the other packets' bytes
+     equal; (b) ShardedBatchDecoder over [cuda:0, cuda:0], and over every
+     card when there are several, on phase 4's and 15's batches and on
+     B=2047: bytes equal to the source, each path kernel once a shard;
+     (c) utils.profiling.profile_batch_decode on phase 15's batch, padded
+     and tight, its bytes equal to the source (phases 12 and 15 profile
+     their call, and phases 15 and 20 time their stages, with the same
+     module); (d) phase 4's batch by decode_async, then pcm_to_float and
+     log_spectrogram on the card, only the features downloaded, against
+     float64 numpy from the source PCM (tolerance 1e-3), with its time
+     and x realtime; (e) 16 packets of phase 4 and 8 of phase 15 through
+     PacketDecoder(cfg, "scalar"), and encode_packets(..., backend=
+     "python") on 16 packets of phase 4's PCM decoded on the card: bytes
+     equal to the source.
 The line before the last is the kernels' JSON record (each kernel's
-launches on its path, and on phase 20's paths as ``launches_phase20_*``,
+launches on its path, on phase 20's paths as ``launches_phase20_*`` and on
+phase 21's as ``launches_phase21_*``,
 max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
 nor the JAX package saprobe_alac_tpu is importable here: both are blocked
 before any import.
@@ -446,7 +469,7 @@ def lanes(w, channels=2):
 
 def packet_args(c, words, sizes):
     """The packet kernel's inputs as walk_batch builds them."""
-    from saprobe_alac_tpu_torch.encoder.spec import CHANNEL_LAYOUT_OFFSETS
+    from saprobe_alac_tpu_torch.codec.element import CHANNEL_LAYOUT_OFFSETS
 
     offsets = torch.tensor(CHANNEL_LAYOUT_OFFSETS[c.num_channels - 1], dtype=torch.int32,
                            device=words.device)
@@ -531,49 +554,6 @@ def shared_decoder(port, c, packets, pcm_all, slices, seed, threads=4):
     return sum(n for _, n in runs)
 
 
-def stage_breakdown(impl, packets):
-    """One decode_packets call of ``impl`` (a TorchBatchDecoder on the card)
-    stage by stage, each stage synchronised and timed by the host clock:
-    where the host holds the card back.  The LPC's lane setup (`lpc_lanes`)
-    and its kernel are stages of their own.  Returns (the call's bytes,
-    {stage: ms}, the bytes the download copied)."""
-    from saprobe_alac_tpu_torch.ops.epilogue import extract_shift, finish_packed
-    from saprobe_alac_tpu_torch.ops.lpc import lpc_fir, lpc_lanes
-    from saprobe_alac_tpu_torch.ops.walk import walk_batch
-
-    c = impl.config
-    Fc, Cc, depth = c.frame_length, c.num_channels, c.bit_depth
-    ms = {}
-
-    sync = torch.cuda.synchronize if impl.device.type == "cuda" else (lambda: None)
-
-    def stage(name, fn):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        ms[name] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    words, sizes = stage("pack_upload", lambda: impl._stage(packets))
-    w = stage("walk", lambda: walk_batch(words, sizes, F=Fc, C=Cc, depth=depth, pb=c.pb,
-                                         mb=c.mb, kb=c.kb))
-    L = words.shape[0] * Cc
-    lanes_in = stage("lpc_lanes", lambda: lpc_lanes(
-        w.order.T.reshape(L), w.mode.T.reshape(L), w.den.T.reshape(L), w.cb.T.reshape(L),
-        w.ns.repeat(Cc), w.coefs.transpose(0, 1).reshape(L, 32)))
-    mix = stage("lpc", lambda: lpc_fir(w.res, *lanes_in, F=Fc, taps=9)[:Fc])
-    shift = stage("shift_reads", lambda: extract_shift(
-        words, w.shift_base, w.bs, w.role, w.ns, F=Fc, C=Cc) if depth in (24, 32) else None)
-    packed = stage("epilogue", lambda: finish_packed(
-        mix, shift, w.bs, w.mixbits, w.mixres, w.role, w.out_chan, w.filled, C=Cc, depth=depth))
-    host, buf = stage("download", lambda: impl._download(packed))
-    ns = w.ns.cpu().numpy()
-    out = stage("trim", lambda: [impl._to_bytes(host[k], int(ns[k])) for k in range(len(packets))])
-    impl._release(buf)
-    return out, ms, packed.numel() * packed.element_size()
-
-
 #: Phase 20's corpus: (seconds, sample rate, depth, channels, bytesShifted),
 #: four files each, every second one a CAF.
 CORPUS = [(180, 44100, 16, 2, 0)] * 4 + [(120, 96000, 24, 2, 1)] * 4 + [(60, 48000, 24, 8, 1)] * 4
@@ -590,6 +570,7 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
     from saprobe_alac_tpu_torch import cli as port_cli
     from saprobe_alac_tpu_torch.encoder import EncoderSpec, encode_to_m4a
     from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
+    from saprobe_alac_tpu_torch.utils.profiling import PhaseTimer, decode_stages
     from saprobe_alac_tpu_torch.utils.wav import wav_header, write_wav
 
     backend = dev.type
@@ -626,7 +607,7 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
         src = pcm_bytes(pcm_a, 16)
         port.reset_launch_counts()
         t0 = time.perf_counter()
-        blob = encode_to_m4a(fmt, pcm_a, frame_length=frame, device=dev)
+        blob = encode_to_m4a(fmt, pcm_a, frame_length=frame, backend=backend)
         res["encode_s"] = time.perf_counter() - t0
         launches["encode_to_m4a"] = launched(
             "encode_to_m4a", ("lpc_forward", "encode"), port.launch_counts())
@@ -704,18 +685,15 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
         no_fallbacks("track, windows")
         # The same two ways stage by stage, each stage synchronised: summed
         # over the 101 windows of 64, and for the one call.
-        win_st, pcm_w = {}, []
+        win_t, one_t, pcm_w = PhaseTimer(), PhaseTimer(), []
         for lo in range(0, n_pk, 64):
-            out_w, st, _ = stage_breakdown(bd.impl, packets[lo : lo + 64])
-            pcm_w += out_w
-            for k, v in st.items():
-                win_st[k] = win_st.get(k, 0.0) + v
-        one_out, one_st, _ = stage_breakdown(bd.impl, packets)
+            pcm_w += decode_stages(bd.impl, packets[lo : lo + 64], win_t)[0]
+        one_out, _ = decode_stages(bd.impl, packets, one_t)
         if b"".join(pcm_w) != src or b"".join(one_out) != src:
             raise AssertionError("phase 20 track: a stage-by-stage decode differs")
         del pcm_w, one_out
-        res["stages_ms_windows64_sum"] = win_st
-        res["stages_ms_one_call"] = one_st
+        win_st = res["stages_ms_windows64_sum"] = win_t.ms()
+        one_st = res["stages_ms_one_call"] = one_t.ms()
         # The kernels of the last window (a partial one, the last packet
         # partial) against their plain versions.
         res["plain_ms_window64"] = hold_batch(cfg_a, packets[(n_pk - 1) // 64 * 64 :], dev,
@@ -790,7 +768,8 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
             paths.append(d / f"c{i}.{'caf' if i % 2 else 'm4a'}")
             paths[-1].write_bytes(encode_to_m4a(
                 port.PCMFormat(r, depth, ch), pcm, frame_length=frame,
-                spec=EncoderSpec(bytes_shifted=bs), container=paths[-1].suffix[1:], device=dev))
+                spec=EncoderSpec(bytes_shifted=bs), container=paths[-1].suffix[1:],
+                backend=backend))
             specs.append((n, ch, SEED + 200 + i, depth, r))
         del pcm
         res["corpus_encode_s"] = time.perf_counter() - t0
@@ -876,6 +855,192 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
     return res, launches
 
 
+def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
+    """Phase 21: the port's paths beside the main decode path, on the card
+    at the main paths' sizes.  ``batches``: {label: (config, packets, source
+    PCM)} for phase 4's, phase 7's and phase 15's batches (label "16-bit
+    stereo" and "7.1" among them); ``ragged``: phase 3's (config, packets).
+    Every path is driven with the launch counts set to 0 just before it and
+    read just after; any byte that differs from the source, any host
+    fallback on clean music and any path kernel not launched raises.
+    Returns the phase's numbers and its launches on each path."""
+    from saprobe_alac_tpu_torch.encoder import EncoderSpec, encode_packets
+    from saprobe_alac_tpu_torch.ops.audio import log_spectrogram, pcm_to_float
+    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
+    from saprobe_alac_tpu_torch.parallel import ShardedBatchDecoder
+    from saprobe_alac_tpu_torch.utils.profiling import profile_batch_decode
+
+    res, launches = {}, {}
+
+    def kernels_of(c):
+        return ("packet", "lpc") + (("raw_read",) if c.bit_depth in (24, 32) else ())
+
+    def launched(where, path, c, per=1):
+        """The path kernels' launches since the last reset: ``per`` each."""
+        counts = port.launch_counts()
+        got = {k: counts[k] for k in kernels_of(c)}
+        if any(n != per for n in got.values()):
+            raise AssertionError(f"phase 21 {where}: launches {counts}, want {per} of each "
+                                 f"of {kernels_of(c)}")
+        total = launches.setdefault(path, {"packet": 0, "lpc": 0, "raw_read": 0})
+        for k, n in got.items():
+            total[k] += n
+
+    def clean(where, *decoders):
+        if any(d.last_fallbacks for d in decoders):
+            raise AssertionError(f"phase 21 {where}: host fallbacks on clean music")
+
+    def outcome(fn):
+        try:
+            return fn()
+        except port.AlacError as exc:
+            return type(exc).__name__
+
+    # ---- (a) tight staging against padded staging ----
+    lines = []
+    for label, (c, pk, pcm) in batches.items():
+        tight, padded = TorchBatchDecoder(c, dev, tight=True), TorchBatchDecoder(c, dev)
+        port.reset_launch_counts()
+        out = tight.decode_packets(pk)
+        launched(f"(a) {label} tight", "tight", c)
+        check_decode(out, pcm, c.bit_depth)
+        if out != padded.decode_packets(pk):
+            raise AssertionError(f"phase 21 (a) {label}: tight bytes differ from padded")
+        clean(f"(a) {label}", tight, padded)
+        del out
+        r = {}
+        for way, dec in (("padded", padded), ("tight", tight)):
+            r[f"{way}_h2d_bytes"] = sum(a.nbytes for a in dec._host_stage(pk)[:3])
+            r[f"{way}_s"] = summary(host_times(lambda: dec.decode_packets(pk), runs=runs))
+        res[f"tight_{label}"] = r
+        lines.append(
+            f"{label}: H2D bytes padded {r['padded_h2d_bytes']} / tight {r['tight_h2d_bytes']}; "
+            f"decode_packets median s padded {r['padded_s']['median']:.4f} / tight "
+            f"{r['tight_s']['median']:.4f}"
+        )
+    c3, pk3 = ragged
+    tight, padded = TorchBatchDecoder(c3, dev, tight=True), TorchBatchDecoder(c3, dev)
+    ht, hp = tight.decode_async(pk3), padded.decode_async(pk3)
+    err_t, err_p = ht[1][: len(pk3)].cpu(), hp[1][: len(pk3)].cpu()
+    bad = torch.nonzero(err_t).flatten().tolist()
+    if not torch.equal(err_t, err_p) or len(bad) < 2:
+        raise AssertionError(f"phase 21 (a) ragged: error lanes {bad} tight, "
+                             f"{torch.nonzero(err_p).flatten().tolist()} padded")
+    got_t, got_p = outcome(lambda: tight.finish_async(ht, pk3)), outcome(
+        lambda: padded.finish_async(hp, pk3))
+    good = [p for i, p in enumerate(pk3) if i not in bad]
+    if got_t != got_p or tight.decode_packets(good) != padded.decode_packets(good):
+        raise AssertionError("phase 21 (a) ragged: tight and padded decodes differ")
+    res["tight_ragged"] = {"packets": len(pk3), "error_lanes": bad,
+                           "outcome": got_t if isinstance(got_t, str) else "bytes"}
+    print(f"phase 21 {tag} (a) TorchBatchDecoder(cfg, tight=True): bytes == padded == source, "
+          f"launches 1 packet, 1 lpc (1 raw read at 24 bits) a call, host fallbacks 0; "
+          + "; ".join(lines) + f"; ragged F={c3.frame_length} B={len(pk3)} (partial packet, "
+          f"escapes, orders 12 and 31): error lanes {bad} in both, the same outcome "
+          f"({res['tight_ragged']['outcome']}), the {len(good)} other packets' bytes equal")
+
+    # ---- (b) the packet-axis sharded decoder ----
+    c4, pk4, pcm4 = batches["16-bit stereo"]
+    inputs = {"16-bit stereo": batches["16-bit stereo"], "7.1": batches["7.1"],
+              "16-bit stereo B=2047": (c4, pk4[:2047], pcm4[: 2047 * F])}
+    meshes = {"2 shards on cuda:0": [dev, dev]}
+    if torch.cuda.device_count() > 1:
+        meshes[f"{torch.cuda.device_count()} cards"] = None
+    lines = []
+    for mesh_label, mesh in meshes.items():
+        for label, (c, pk, pcm) in inputs.items():
+            sd = ShardedBatchDecoder(c, mesh)
+            port.reset_launch_counts()
+            out = sd.decode_packets(pk)
+            launched(f"(b) {mesh_label} {label}", "sharded", c, per=len(sd.devices))
+            check_decode(out, pcm, c.bit_depth)
+            clean(f"(b) {mesh_label} {label}", sd)
+            del out
+            t = summary(host_times(lambda: sd.decode_packets(pk), runs=3))
+            res[f"sharded_{mesh_label}_{label}_s"] = t
+            lines.append(f"{mesh_label}, {label}: median {t['median']:.4f} s")
+    n_cards = max(1, torch.cuda.device_count())  # every mesh above: on one card, and on all
+    res["sharded_cards"] = n_cards
+    print(f"phase 21 {tag} (b) ShardedBatchDecoder on {n_cards} card(s): bytes == source, each "
+          f"path kernel once a shard, host fallbacks 0; " + "; ".join(lines))
+
+    # ---- (c) the profiler on phase 15's batch ----
+    c71, pk71, pcm71 = batches["7.1"]
+    for tight_ in (False, True):
+        way = "tight" if tight_ else "padded"
+        port.reset_launch_counts()
+        timer, out = profile_batch_decode(c71, pk71, iters=1, device=dev, tight=tight_)
+        launched(f"(c) profile_batch_decode {way}", "profiler", c71, per=2)  # warm + 1
+        check_decode(out, pcm71, 24)
+        del out
+        res[f"profile_71_{way}_ms"] = timer.ms()
+    print(f"phase 21 {tag} (c) profile_batch_decode(7.1, iters=1), bytes == source, ms: padded "
+          f"{json.dumps(res['profile_71_padded_ms'])}; tight {json.dumps(res['profile_71_tight_ms'])}")
+
+    # ---- (d) device-resident features of phase 4's batch ----
+    dec = TorchBatchDecoder(c4, dev)
+    n_pk = len(pk4)
+
+    def features():
+        packed, err, _, wide = dec.decode_async(pk4)
+        samples = packed[:n_pk].contiguous().view(torch.int16).reshape(n_pk, F, 2)
+        feats = log_spectrogram(pcm_to_float(samples, 16).mean(dim=-1))
+        return feats.cpu(), err[:n_pk].cpu(), wide[:n_pk].cpu()
+
+    port.reset_launch_counts()
+    feats, err, wide = features()
+    launched("(d) features", "features", c4)
+    if bool(err.any()) or bool(wide.any()):
+        raise AssertionError("phase 21 (d): a packet of clean music needs the host or 32 taps")
+    src = np.zeros((n_pk * F, 2))
+    src[: len(pcm4)] = pcm4
+    mono = (src / 32768.0).mean(axis=-1).reshape(n_pk, F)
+    frame, hop, n_bins = 512, 256, 128
+    idx = np.arange(1 + (F - frame) // hop)[:, None] * hop + np.arange(frame)
+    win = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(frame) / frame)
+    want = np.log1p(np.abs(np.fft.rfft(mono[:, idx] * win, axis=-1))[..., :n_bins])
+    f_err = float(np.abs(feats.double().numpy() - want).max())
+    if f_err > 1e-3:
+        raise AssertionError(f"phase 21 (d): features differ from float64 numpy by {f_err}")
+    t = host_times(features, runs=runs)
+    audio_s = len(pcm4) / c4.sample_rate
+    res["features"] = {"max_abs_err": f_err, "s": summary(t), "feature_bytes": feats.numel() * 4,
+                       "pcm_bytes": n_pk * F * 4, "x_realtime": audio_s / statistics.median(t)}
+    print(f"phase 21 {tag} (d) decode_async + pcm_to_float + log_spectrogram on the card, "
+          f"B={n_pk}: features {tuple(feats.shape)} max_abs_err {f_err:.3g} against float64 numpy "
+          f"(tolerance 1e-3); decode+features median {statistics.median(t) * 1e3:.1f} ms, x "
+          f"realtime {res['features']['x_realtime']:.1f}; {feats.numel() * 4} feature bytes "
+          f"back for {n_pk * F * 4} bytes of PCM")
+
+    # ---- (e) the host backends: the scalar oracle and the Python encoder ----
+    t0 = time.perf_counter()
+    pd = port.PacketDecoder(c4, "scalar")
+    check_decode([pd.decode_packet(p) for p in pk4[:16]], pcm4[: 16 * F], 16)
+    t1 = time.perf_counter()
+    pd = port.PacketDecoder(c71, "scalar")
+    check_decode([pd.decode_packet(p) for p in pk71[:8]], pcm71[: 8 * F], 24)
+    t2 = time.perf_counter()
+    pk_py = encode_packets(c4, EncoderSpec(), pcm4[: 16 * F], backend="python")
+    t3 = time.perf_counter()
+    dec = TorchBatchDecoder(c4, dev)
+    port.reset_launch_counts()
+    out = dec.decode_packets(pk_py)
+    launched("(e) the Python encoder's packets", "python_encoder", c4)
+    check_decode(out, pcm4[: 16 * F], 16)
+    clean("(e)", dec)
+    res["host"] = {"scalar_stereo_s_per_packet": (t1 - t0) / 16,
+                   "scalar_71_s_per_packet": (t2 - t1) / 8,
+                   "python_encode_s_per_packet": (t3 - t2) / 16,
+                   "python_packet_bytes": sum(map(len, pk_py)),
+                   "native_packet_bytes": sum(map(len, pk4[:16]))}
+    print(f"phase 21 {tag} (e) PacketDecoder(cfg, 'scalar'): 16 stereo packets == source "
+          f"({(t1 - t0) / 16:.3f} s a packet), 8 7.1 packets == source ({(t2 - t1) / 8:.3f} s a "
+          f"packet); encode_packets(backend='python'), 16 packets ({(t3 - t2) / 16:.3f} s a "
+          f"packet, {res['host']['python_packet_bytes']} bytes against the C++ core's "
+          f"{res['host']['native_packet_bytes']}), decoded on the card == source")
+    return res, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -888,6 +1053,7 @@ def main() -> int:
     from saprobe_alac_tpu_torch.ops.epilogue import shift_reads
     from saprobe_alac_tpu_torch.ops.raw_reader import raw_read, raw_read_reference
     from saprobe_alac_tpu_torch.ops.walk import walk_batch
+    from saprobe_alac_tpu_torch.utils.profiling import PhaseTimer, decode_stages, profile_call
 
     dev = torch.device("cuda")
     card = card_line()
@@ -1004,6 +1170,7 @@ def main() -> int:
         bad1[i] ^= 1 << int(rng.integers(0, 8))
     pk += [bad0, bytes(bad1)]
     assert len(pk) == 256
+    ragged3 = (cfg3, pk)  # phase 21 stages it tight
     words, sizes = stager._stage(pk)
     B = words.shape[0]
     w = walk(cfg3, words, sizes)
@@ -1488,22 +1655,8 @@ def main() -> int:
         f"(one thread) {host_enc_s:.3f} s, x realtime {audio_s / host_enc_s:.1f}"
     )
     # One profiled call: how much of it the card is busy, and with what.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        port.encode_packets_device(cfg, fit_spec, chunks16)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    # Device-side events only (kernels and copies): an operator's row repeats
-    # its kernels' time, and the profiler's own buffer request is not work.
-    dev_us = sorted(
-        ((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-         and not e.key.startswith("Activity Buffer")),
-        reverse=True,
-    )
+    prof_s, dev_us = profile_call(lambda: port.encode_packets_device(cfg, fit_spec, chunks16),
+                                  torch.cuda.synchronize)
     busy_ms = sum(us for us, _, _ in dev_us) / 1e3
     top = "; ".join(f"{key[:48]} {us / 1e3:.2f} ms x{n}" for us, n, key in dev_us[:6])
     print(
@@ -1749,30 +1902,8 @@ def main() -> int:
         f"{s_audio_s / s_med:.1f} (min {s_audio_s / max(s_host):.1f}, max "
         f"{s_audio_s / min(s_host):.1f})"
     )
-    # One profiled call.  The marked call is the second inside the profiler:
-    # a profiler's first records can be lost, and a busy time that misses
-    # the walk would pass for a measurement.  Device events are taken from
-    # the marked call's own window.
-    from torch.profiler import record_function
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sdec.decode_packets(spkts)
-        torch.cuda.synchronize()
-        with record_function("smoke_marked_call"):
-            t0 = time.perf_counter()
-            sdec.decode_packets(spkts)
-            torch.cuda.synchronize()
-            prof_s = time.perf_counter() - t0
-    events = prof.events()
-    mark = next(e for e in events if e.name == "smoke_marked_call"
-                and e.device_type != DeviceType.CUDA)
-    by_name = {}
-    for e in events:
-        inside = mark.time_range.start <= e.time_range.start <= mark.time_range.end
-        if e.device_type == DeviceType.CUDA and inside and e.name != "smoke_marked_call":
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    dev_us = sorted(((us, n, key) for key, (us, n) in by_name.items()), reverse=True)
+    # One profiled call (the second under the profiler; its device events).
+    prof_s, dev_us = profile_call(lambda: sdec.decode_packets(spkts), torch.cuda.synchronize)
     busy_ms = sum(us for us, _, _ in dev_us) / 1e3
     top = "; ".join(f"{key[:40]} {us / 1e3:.2f} ms x{n}" for us, n, key in dev_us[:7])
     seen = any("packet_kernel" in key for _, _, key in dev_us)
@@ -1783,14 +1914,14 @@ def main() -> int:
            f"{sum(n for _, n, _ in dev_us)} kernels and copies; top: {top}"
            if seen else "not measured (the profiler's records of the call lack the packet kernel)")
     )
-    del events
-    del prof
 
     # One call stage by stage, each synchronised and timed by the host clock:
     # where the host holds the card back.
-    s_out, st, down_bytes = stage_breakdown(sdec.impl, spkts)
+    st = PhaseTimer()
+    s_out, down_bytes = decode_stages(sdec.impl, spkts, st)
     check_decode(s_out, spcm, 24)
     del s_out
+    st = st.ms()
     print(
         f"phase 15 {tag} one 7.1 call stage by stage (host clock, synchronised, ms): pack and "
         f"upload {st['pack_upload']:.1f}; walk (packet kernel) {st['walk']:.1f}; lpc lanes "
@@ -2117,6 +2248,19 @@ def main() -> int:
     res20["phase_s"] = time.perf_counter() - t20
     print(f"phase 20 {tag} numbers: {json.dumps(res20)}")
 
+    # ---- phase 21: tight staging, sharding, the profiler, features, host backends ----
+    t21 = time.perf_counter()
+    res21, l21 = new_paths_phase(
+        port, tag, dev, {"16-bit stereo": (cfg, pkts, pcm), "96 kHz 24-bit stereo":
+                         (hcfg, hpkts, hpcm), "7.1": (scfg, spkts, spcm)}, ragged3)
+    res21["phase_s"] = time.perf_counter() - t21
+    print(f"phase 21 {tag} numbers: {json.dumps(res21)}")
+
+    def phase21(kernel):
+        """A kernel's launches on each of phase 21's paths, as JSON keys."""
+        return {f"launches_phase21_{path}": counts[kernel] for path, counts in l21.items()
+                if counts[kernel]}
+
     def case_fields(res_by_label):
         """Phase 18's times of the LPC's other bodies, as JSON keys."""
         return {f"{key}_{label}_F{F}": val for label, res in res_by_label.items()
@@ -2147,6 +2291,7 @@ def main() -> int:
             "launches": launches["lpc"], "max_abs_err": l_err,
             "launches_phase20_track": l20["track"]["lpc"],
             "launches_phase20_corpus": l20["corpus"]["lpc"],
+            **phase21("lpc"),
             "plain_ms_phase20_window64": res20["plain_ms_window64"]["lpc"],
             "ms": statistics.median(t_lpc), "ms_one": statistics.median(t_lpc1),
             "plain_ms": lpc_plain_ms,
@@ -2167,6 +2312,7 @@ def main() -> int:
             "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:1252",
             "launches": h_launches["raw_read"], "max_abs_err": r_err,
             "launches_phase20_corpus": l20["corpus"]["raw_read"],
+            **phase21("raw_read"),
             "plain_ms_phase20_corpus_hires": res20["plain_ms_raw_read_corpus"]["hires"],
             "plain_ms_phase20_corpus_71": res20["plain_ms_raw_read_corpus"]["7.1"],
             "ms": statistics.median(t_rr), "plain_ms": statistics.median(t_rr_plain),
@@ -2212,6 +2358,7 @@ def main() -> int:
             "launches": s_launches["packet"], "max_abs_err": max(pw_err, p_err, pk_err),
             "launches_phase20_track": l20["track"]["packet"],
             "launches_phase20_corpus": l20["corpus"]["packet"],
+            **phase21("packet"),
             "plain_ms_phase20_window64": res20["plain_ms_window64"]["packet"],
             "ms": statistics.median(t_pk), "plain_ms": pk_plain_ms,
             "bound_ms": pk_bound[0], "bound_by": pk_bound[1], "library_ms": None,

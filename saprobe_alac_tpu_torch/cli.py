@@ -4,15 +4,16 @@ Counterpart of saprobe_alac_tpu/cli.py (reference
 cmd/alac-example-decoder/main.go):
 
   python -m saprobe_alac_tpu_torch.cli [-version] [-format wav|pcm]
-      [-backend cuda|cpu|native] [-batch N] <in.m4a|in.caf|-> [out]
+      [-backend cuda|cpu|native|scalar] [-batch N] <in.m4a|in.caf|-> [out]
 
 ``-backend`` picks where windows decode: ``cuda`` (default; raises without
-a card), ``cpu`` (the kernels' plain versions) or ``native`` (the C++ host
-core).  stdin input ('-') is buffered to memory (the container needs
-seeking, main.go:117-133); WAV output buffers all PCM for the 44-byte
-header (main.go:91-104); PCM mode streams.  `encode_main` (alac-encode)
-encodes on the same backends: ``cuda`` and ``cpu`` run the device encoder
-there, ``native`` the C++ core.
+a card), ``cpu`` (the kernels' plain versions), ``native`` (the C++ host
+core) or ``scalar`` (the Python oracle, codec/).  stdin input ('-') is
+buffered to memory (the container needs seeking, main.go:117-133); WAV
+output buffers all PCM for the 44-byte header (main.go:91-104); PCM mode
+streams.  `encode_main` (alac-encode)
+takes the encoder's backend words: ``cuda`` and ``cpu`` run the device
+encoder there, ``native`` the C++ core, ``python`` the Python encoder.
 """
 
 from __future__ import annotations
@@ -24,10 +25,11 @@ import sys
 from . import __version__
 from .decode import new_decoder
 from .encoder import encode_wav_to_m4a
+from .encoder.encode import BACKENDS as ENCODE_BACKENDS
 from .errors import AlacError
 from .utils.wav import wav_header
 
-BACKENDS = ("cuda", "cpu", "native")
+BACKENDS = ("cuda", "cpu", "native", "scalar")
 
 
 def _open_input(path: str, prog: str):
@@ -48,7 +50,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("-version", "--version", action="version", version=f"alac-decode {__version__}")
     parser.add_argument("-format", "--format", choices=("wav", "pcm"), default="wav")
     parser.add_argument("-backend", "--backend", choices=BACKENDS, default="cuda",
-                        help="where packet windows decode: the card, the CPU or the C++ host core")
+                        help="where packet windows decode: the card, the CPU, the C++ host core "
+                        "or the Python oracle")
     parser.add_argument("-batch", "--batch", type=int, default=64, help="packets per window")
     parser.add_argument("input", help="input .m4a/.caf file, or '-' for stdin")
     parser.add_argument("output", nargs="?", help="output file (default: stdout)")
@@ -92,8 +95,9 @@ def encode_main(argv: list[str] | None = None) -> int:
     parser.add_argument("-version", "--version", action="version", version=f"alac-encode {__version__}")
     parser.add_argument("-frame", "--frame", type=int, default=4096, help="samples per packet")
     parser.add_argument("-container", "--container", choices=("m4a", "caf"), default="m4a")
-    parser.add_argument("-backend", "--backend", choices=BACKENDS, default="cuda",
-                        help="where packets encode: the card, the CPU or the C++ host core")
+    parser.add_argument("-backend", "--backend", choices=ENCODE_BACKENDS, default="cuda",
+                        help="where packets encode: the card, the CPU, the C++ host core or the "
+                        "Python encoder")
     parser.add_argument("input", help="input .wav file, or '-' for stdin")
     parser.add_argument("output", nargs="?", help="output .m4a (default: stdout)")
     args = parser.parse_args(argv)
@@ -101,11 +105,10 @@ def encode_main(argv: list[str] | None = None) -> int:
     reader = _open_input(args.input, "alac-encode")
     if reader is None:
         return 1
-    where = {"backend": "native"} if args.backend == "native" else {"device": args.backend}
     with reader:
         try:
             blob = encode_wav_to_m4a(reader, frame_length=args.frame, container=args.container,
-                                     **where)
+                                     backend=args.backend)
         except (ValueError, AlacError) as exc:
             print(f"alac-encode: {exc}", file=sys.stderr)
             return 1

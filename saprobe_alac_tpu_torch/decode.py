@@ -8,9 +8,9 @@ before it waits for the current one (`_fill_buffer`).
 
 ``backend``: ``"cuda"`` (default; raises without a card) and ``"cpu"`` (the
 kernels' plain versions) decode windows through `BatchDecoder`, also
-one-packet windows when ``batch_size == 1``; ``"native"`` decodes windows
-on the host by the C++ core, and single packets by `PacketDecoder` when
-``batch_size == 1``.
+one-packet windows when ``batch_size == 1``; ``"native"`` (the C++ core)
+and ``"scalar"`` (the Python oracle) decode windows on the host, and single
+packets by `PacketDecoder` when ``batch_size == 1``.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import BinaryIO
 
 from .caf import find_alac_track_caf, sniff_container
 from .config import parse_magic_cookie
-from .decoder import BatchDecoder, PacketDecoder
+from .decoder import HOST_BACKENDS, BatchDecoder, PacketDecoder
 from .formats import PCMFormat, bytes_per_sample
 from .mp4 import SampleInfo, find_alac_track
 from .utils.pcmconv import pcm_bytes_to_array
@@ -52,8 +52,8 @@ class Decoder:
         self._buf_off = 0
         self._eof = False
         self._batch_size = max(1, batch_size)
-        if backend == "native" and self._batch_size == 1:
-            self._packet_dec, self._batch_dec = PacketDecoder(config, "native"), None
+        if backend in HOST_BACKENDS and self._batch_size == 1:
+            self._packet_dec, self._batch_dec = PacketDecoder(config, backend), None
         else:
             self._packet_dec, self._batch_dec = None, BatchDecoder(config, backend)
         # The dispatched next window: (first sample index, packets, handle).

@@ -5,27 +5,26 @@ low-level single-packet surface (reference decoder.go:79-128:
 NewPacketDecoder / DecodePacket / Format); ``BatchDecoder`` decodes
 batches of packets that share one config.  Both take one backend word: a
 CUDA device (``"cuda"``, the default) runs the hand-written kernels,
-``"cpu"`` their plain PyTorch versions, and ``"native"`` the repo's C++
-core on the host.  Streams of C = 1..8 channels at 16, 20, 24 and 32 bits.
+``"cpu"`` their plain PyTorch versions, ``"native"`` the repo's C++ core
+on the host and ``"scalar"`` the Python oracle (codec/).  Streams of
+C = 1..8 channels at 16, 20, 24 and 32 bits.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
+
 from . import native
+from .codec import decode_packet as scalar_decode_packet
 from .config import PacketConfig
 from .errors import UnsupportedBitDepth
 from .formats import ALAC_BIT_DEPTHS, PCMFormat
 from .ops.batch import TorchBatchDecoder, _host_decode
 
-
-def _no_scalar(backend) -> None:
-    if backend == "scalar":
-        raise ValueError(
-            "backend 'scalar' needs the Python oracle (saprobe_alac_tpu/codec/), which the "
-            "port does not have yet; use 'native'"
-        )
+#: The backends that decode on the host, packet by packet.
+HOST_BACKENDS = ("native", "scalar")
 
 
 def _format(config: PacketConfig) -> PCMFormat:
@@ -39,13 +38,14 @@ class PacketDecoder:
 
     ``backend``: ``"cuda"`` (default; raises without a card) and ``"cpu"``
     decode each packet as a one-packet batch through `BatchDecoder`;
-    ``"native"`` decodes it on the host by the C++ core."""
+    ``"native"`` decodes it on the host by the C++ core, ``"scalar"`` by
+    the Python oracle."""
 
     def __init__(self, config: PacketConfig, backend="cuda"):
-        _no_scalar(backend)
         self._format = _format(config)
         self.config = config
-        self._batch = None if backend == "native" else BatchDecoder(config, backend)
+        self.backend = backend
+        self._batch = None if backend in HOST_BACKENDS else BatchDecoder(config, backend)
 
     def format(self) -> PCMFormat:
         return self._format
@@ -53,7 +53,9 @@ class PacketDecoder:
     def decode_packet(self, packet: bytes) -> bytes:
         """Decode one packet (a partial frame gives its own sample count);
         a malformed packet raises the oracle's class of the same name."""
-        if self._batch is None:
+        if self.backend == "scalar":
+            return scalar_decode_packet(self.config, packet)[0]
+        if self.backend == "native":
             return native.decode_packet(self.config, packet)
         return self._batch.decode_packets([packet])[0]
 
@@ -62,13 +64,23 @@ class BatchDecoder:
     """Batched packet decoding for one PacketConfig.
 
     ``device``: ``"cuda"`` (default; raises without a card), ``"cpu"``, any
-    torch device, or ``"native"`` for the host C++ core."""
+    torch device, or a host backend: ``"native"`` (the C++ core) or
+    ``"scalar"`` (the Python oracle).  With more than one card, ``"cuda"``
+    shards each batch's packets over every card (`ShardedBatchDecoder`),
+    as the JAX package does over its devices (decoder.py:83-96)."""
 
     def __init__(self, config: PacketConfig, device="cuda"):
-        _no_scalar(device)
         self._format = _format(config)
         self.config = config
-        self.impl = None if device == "native" else TorchBatchDecoder(config, device)
+        self.backend = device if device in HOST_BACKENDS else None
+        if self.backend is not None:
+            self.impl = None
+        elif device == "cuda" and torch.cuda.device_count() > 1:
+            from .parallel import ShardedBatchDecoder
+
+            self.impl = ShardedBatchDecoder(config)
+        else:
+            self.impl = TorchBatchDecoder(config, device)
 
     def format(self) -> PCMFormat:
         return self._format
@@ -77,7 +89,9 @@ class BatchDecoder:
         """Decode a batch of packets; returns per-packet PCM byte strings."""
         if not packets:
             return []
-        if self.impl is None:
+        if self.backend == "scalar":
+            return [scalar_decode_packet(self.config, p)[0] for p in packets]
+        if self.backend == "native":
             return _host_decode(self.config, packets)
         return self.impl.decode_packets(packets)
 

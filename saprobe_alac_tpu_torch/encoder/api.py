@@ -1,8 +1,8 @@
 """High-level encoding API: PCM arrays or WAV files -> ALAC M4A or CAF.
 
 Counterpart of saprobe_alac_tpu/encoder/api.py over the port's
-`encode_packets`: ``backend="device"`` (default) encodes on ``device`` (the
-card unless the caller asks for ``"cpu"``), ``"native"`` by the C++ core.
+`encode_packets` and its backend words: ``"cuda"`` (default), ``"cpu"``,
+``"native"`` (the C++ core) and ``"python"``.
 """
 
 from __future__ import annotations
@@ -40,10 +40,10 @@ def make_packet_config(fmt: PCMFormat, frame_length: int = DEFAULT_FRAME_LENGTH,
 
 def encode_to_m4a(fmt: PCMFormat, samples: np.ndarray, frame_length: int = DEFAULT_FRAME_LENGTH,
                   spec: EncoderSpec | None = None, container: str = "m4a",
-                  backend: str = "device", device="cuda") -> bytes:
+                  backend="cuda") -> bytes:
     """Encode (n, channels) integer samples into an M4A or CAF file."""
     config = make_packet_config(fmt, frame_length=frame_length)
-    packets = encode_packets(config, spec or EncoderSpec(), samples, backend=backend, device=device)
+    packets = encode_packets(config, spec or EncoderSpec(), samples, backend=backend)
     n = samples.shape[0]
     spp = [min(frame_length, n - i * frame_length) for i in range(len(packets))]
     if container == "caf":
@@ -53,8 +53,8 @@ def encode_to_m4a(fmt: PCMFormat, samples: np.ndarray, frame_length: int = DEFAU
 
 def encode_wav_to_m4a(wav: BinaryIO, frame_length: int = DEFAULT_FRAME_LENGTH,
                       spec: EncoderSpec | None = None, container: str = "m4a",
-                      backend: str = "device", device="cuda") -> bytes:
+                      backend="cuda") -> bytes:
     """Encode a PCM WAV stream into an ALAC M4A (or CAF) file."""
     fmt, data = read_wav(wav)
     return encode_to_m4a(fmt, pcm_bytes_to_array(fmt, data), frame_length=frame_length,
-                         spec=spec, container=container, backend=backend, device=device)
+                         spec=spec, container=container, backend=backend)

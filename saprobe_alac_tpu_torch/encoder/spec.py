@@ -1,10 +1,10 @@
-"""Encoder choices and the element layout tables.
+"""Encoder choices: `ChannelSpec`, `EncoderSpec` and the host-side
+least-squares fit of initial coefficients.
 
-The port's own copy of what saprobe_alac_tpu/encoder/encode.py:44-115 and
-saprobe_alac_tpu/codec/element.py hold for the encoders: `ChannelSpec`,
-`EncoderSpec`, the host-side least-squares fit of initial coefficients, the
-MPEG element layout per channel count, the LFE's bitstream index and the
-bitstream-to-SMPTE channel offsets.  numpy only.
+The port's own copy of saprobe_alac_tpu/encoder/encode.py:44-115, numpy
+only.  The element layout per channel count is the decoder's table
+(codec/element.py), as are the LFE's bitstream index and the
+bitstream-to-SMPTE channel offsets the encoders use.
 """
 
 from __future__ import annotations
@@ -13,34 +13,11 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..codec.element import element_layout
+
 #: Default initial LPC coefficients (den_shift 9 fixed point), a gentle
 #: low-order smoother; the adaptive walk tunes them per block.
 _DEFAULT_COEFS = [160, 80, 40, 20, 10, 5, 3, 2]
-
-#: Bitstream channel index -> SMPTE output channel, per channel count - 1.
-CHANNEL_LAYOUT_OFFSETS = (
-    (0,),
-    (0, 1),
-    (2, 0, 1),
-    (2, 0, 1, 3),
-    (2, 0, 1, 3, 4),
-    (2, 0, 1, 4, 5, 3),
-    (2, 0, 1, 4, 5, 6, 3),
-    (2, 6, 7, 0, 1, 4, 5, 3),
-)
-
-#: Bitstream channel index of the LFE channel (SMPTE output index 3).
-LFE_BITSTREAM_IDX = {6: 5, 7: 6, 8: 7}
-
-_ELEMENT_LAYOUT = {
-    1: [1], 2: [2], 3: [1, 2], 4: [1, 2, 1], 5: [1, 2, 2],
-    6: [1, 2, 2, 1], 7: [1, 2, 2, 1, 1], 8: [1, 2, 2, 2, 1],
-}
-
-
-def element_layout(num_channels: int) -> list[int]:
-    """MPEG element sizes per channel count: 1 (SCE/LFE) and 2 (CPE)."""
-    return _ELEMENT_LAYOUT[num_channels]
 
 
 @dataclass

@@ -7,9 +7,15 @@ every packet, SCE+SCE stereo and DSE/FIL elements included).  A CUDA device
 (the default) launches the kernels, the CPU runs their plain versions, and
 nothing moves between the two by itself.  Packets that trip device-side
 validation (any nonzero ERR_* code) are decoded by the exact host path, the
-JAX package's error contract (batch.py:32-51, 380-390).
-Staging and the host path run on the repo's C++ host core (``..native``); a
-packet the core rejects raises the class the scalar oracle raises for it.
+JAX package's error contract (batch.py:32-51, 380-390): the repo's C++ host
+core (``..native``), and the scalar oracle (``..codec``) for a packet the
+core rejects, so it raises the oracle's typed exception.
+
+Staging is padded by default: the core packs each packet into a row of the
+batch's bucketed width.  ``tight=True`` uploads the packets back to back
+instead, each padded only to its own word, with their word offsets, and
+builds the padded rows on the device with one masked gather (batch.py:106-137,
+273-302): fewer bytes over the link, the same rows.
 """
 
 from __future__ import annotations
@@ -21,23 +27,24 @@ import numpy as np
 import torch
 
 from .. import native
+from ..codec import decode_packet as scalar_decode_packet
 from ..config import PacketConfig
-from ..errors import ConfigError, UnsupportedBitDepth, core_error
+from ..errors import ConfigError, UnsupportedBitDepth
 from .epilogue import extract_shift, finish_packed
 from .lpc import lpc_batch
 from .walk import ERR_NONE, walk_batch
 
 
 def _host_decode(config: PacketConfig, packets: Sequence[bytes]) -> list[bytes]:
-    """Host decode by the threaded C++ core.  The first packet the core
-    rejects raises the error class of its code, the class the scalar oracle
-    raises for the same packet (the JAX package re-runs the oracle to get
-    it, batch.py:32-51)."""
+    """Host decode by the threaded C++ core.  A packet the core rejects is
+    re-run through the scalar oracle, so it raises the oracle's typed
+    exception (or gives the oracle's bytes where the oracle accepts it), as
+    the JAX package does (batch.py:32-51)."""
     out, lens, errs = native.decode_batch(config, packets)
-    bad = np.flatnonzero(errs)
-    if bad.size:
-        raise core_error(int(errs[bad[0]]))
-    return [out[i, : lens[i]].tobytes() for i in range(len(packets))]
+    return [
+        scalar_decode_packet(config, p)[0] if errs[i] else out[i, : lens[i]].tobytes()
+        for i, p in enumerate(packets)
+    ]
 
 
 def _bucket(n: int, floor: int = 8) -> int:
@@ -51,10 +58,19 @@ def _bucket(n: int, floor: int = 8) -> int:
         b *= 2
 
 
-class TorchBatchDecoder:
-    """Device-batched packet decoding for one PacketConfig on one device."""
+def _byteswap(w: torch.Tensor) -> torch.Tensor:
+    """Little- <-> big-endian int32 words, on their device (batch.py:66-75)."""
+    return ((w >> 24) & 0xFF) | ((w >> 8) & 0xFF00) | ((w & 0xFF00) << 8) | (w << 24)
 
-    def __init__(self, config: PacketConfig, device="cuda"):
+
+class TorchBatchDecoder:
+    """Device-batched packet decoding for one PacketConfig on one device.
+
+    ``tight``: stage the packets back to back and build the padded rows on
+    the device (off by default, as in the JAX package); the bytes are the
+    same either way."""
+
+    def __init__(self, config: PacketConfig, device="cuda", tight: bool = False):
         if config.bit_depth not in (16, 20, 24, 32):
             raise UnsupportedBitDepth(f"unsupported bit depth {config.bit_depth}")
         if not 1 <= config.num_channels <= 8:
@@ -65,6 +81,7 @@ class TorchBatchDecoder:
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
         self.config = config
+        self.tight = tight
         # kb == 0 relies on Go uint32 bit-position wrap, and absurd frame
         # lengths would blow device memory: such streams go to the host.
         self._scalar_only = config.kb == 0 or not 1 <= config.frame_length <= (1 << 16)
@@ -75,16 +92,48 @@ class TorchBatchDecoder:
         self._pinned_free: list[torch.Tensor] = []
         self._lock = threading.Lock()
 
-    def _stage(self, packets: Sequence[bytes]):
-        """Pack to bucketed shapes and upload: (words (B, W), size_bits (B,))
-        on the device, words big-endian as the walk reads them."""
-        longest = max(len(p) for p in packets)
-        rows = _bucket(len(packets))
-        width = _bucket((longest + 3) // 4 + native.GUARD_WORDS, floor=16)
+    def _host_stage(self, packets: Sequence[bytes], rows: int | None = None) -> tuple:
+        """The host arrays a batch uploads, ``rows`` rows (by default the
+        bucket of its size): padded, (words (rows, W) big-endian, size_bits);
+        tight, (flat little-endian words, int32 word offsets, size_bits, Wb)."""
+        rows = rows or _bucket(len(packets))
         sizes = np.zeros(rows, np.int32)
         sizes[: len(packets)] = [len(p) * 8 for p in packets]
-        words = native.pack_packets(packets, rows, width)
-        return torch.from_numpy(words).to(self.device), torch.from_numpy(sizes).to(self.device)
+        longest = max((len(p) for p in packets), default=0)
+        if not self.tight:
+            width = _bucket((longest + 3) // 4 + native.GUARD_WORDS, floor=16)
+            return native.pack_packets(packets, rows, width), sizes
+        # Each packet padded to its own word, back to back (batch.py:273-302).
+        wc = np.fromiter(((len(p) + 3) // 4 for p in packets), np.int64, count=len(packets))
+        offs = np.zeros(rows, np.int64)
+        np.cumsum(wc[:-1], out=offs[1 : len(packets)])
+        Wb = _bucket((longest + 3) // 4 + native.GUARD_WORDS, floor=16)
+        # A row gathers Wb words from its offset: size the buffer past the
+        # last packet's slice of Wb words, so no row reads beyond it.  (The
+        # JAX package also buckets this size, to bound its recompiles; the
+        # port compiles nothing per shape, so it uploads no more.)
+        last = int(offs[len(packets) - 1]) if packets else 0
+        flat = np.zeros(4 * max(int(wc.sum()) + native.GUARD_WORDS, last + Wb), np.uint8)
+        for p, o in zip(packets, (4 * offs[: len(packets)]).tolist()):
+            flat[o : o + len(p)] = np.frombuffer(p, np.uint8)
+        return flat.view(np.int32), offs.astype(np.int32), sizes, Wb
+
+    def _stage(self, packets: Sequence[bytes], rows: int | None = None):
+        """Stage a batch on the device: (words (rows, W), size_bits (rows,)),
+        words big-endian as the walk reads them.  Tight staging uploads the
+        packets back to back, swaps the words' bytes on the device, once,
+        and gathers each row from its offset, zero at and past
+        ceil(size_bits / 32): a row reads zeros past its packet, as the
+        padded rows' guard words give (batch.py:106-137)."""
+        host = self._host_stage(packets, rows)
+        up = [torch.from_numpy(a).to(self.device) for a in host[:3]]
+        if not self.tight:
+            return up[0], up[1]
+        flat, offsets, sizes = _byteswap(up[0]), up[1], up[2]
+        col = torch.arange(host[3], dtype=torch.int32, device=self.device)
+        words = flat[offsets[:, None] + col[None, :]]
+        words = torch.where(col[None, :] < ((sizes + 31) >> 5)[:, None], words, 0)
+        return words, sizes
 
     def _download(self, t: torch.Tensor) -> tuple[np.ndarray, torch.Tensor | None]:
         """Device -> host through a pinned buffer: on an H100 a pageable copy
@@ -108,12 +157,14 @@ class TorchBatchDecoder:
             with self._lock:
                 self._pinned_free.append(buf)
 
-    def decode_async(self, packets: Sequence[bytes], taps: int = 9):
+    def decode_async(self, packets: Sequence[bytes], taps: int = 9, rows: int | None = None):
         """Dispatch a batch; returns device tensors (packed, err, ns, wide)
         without waiting for the device.  ``taps=9`` serves orders up to 8;
-        finish_async re-runs at 32 taps when ``wide`` flags an order 9..30."""
+        finish_async re-runs at 32 taps when ``wide`` flags an order 9..30,
+        staged as the first run was.  ``rows``: the batch's rows (by default
+        the bucket of its size)."""
         cfg = self.config
-        words, sizes = self._stage(packets)
+        words, sizes = self._stage(packets, rows)
         F, C, depth = cfg.frame_length, cfg.num_channels, cfg.bit_depth
         w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
         L = words.shape[0] * C
@@ -162,7 +213,7 @@ class TorchBatchDecoder:
         """Materialize a decode_async result into per-packet PCM bytes."""
         packed, err, ns, wide = handle
         if bool(wide[: len(packets)].any()):
-            packed, err, ns, _ = self.decode_async(packets, taps=32)
+            packed, err, ns, _ = self.decode_async(packets, taps=32, rows=err.shape[0])
         err = err.cpu().numpy()
         ns = ns.cpu().numpy()
         fb_idx = [i for i in range(len(packets)) if err[i] != ERR_NONE]

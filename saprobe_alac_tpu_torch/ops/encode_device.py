@@ -32,7 +32,8 @@ import torch.nn.functional as tF
 
 from .. import native
 from ..config import PacketConfig
-from ..encoder.spec import CHANNEL_LAYOUT_OFFSETS, LFE_BITSTREAM_IDX, EncoderSpec, element_layout
+from ..codec.element import CHANNEL_LAYOUT_OFFSETS, LFE_BITSTREAM_IDX, element_layout
+from ..encoder.spec import EncoderSpec
 from .batch import _bucket
 from .encode_kernel import _emit, dense_encode
 from .lpc import _INT32_ORDERS

@@ -29,7 +29,7 @@ from .walk_kernel import (  # noqa: F401  (ERR_* re-exported)
     PACKET_FIELDS,
     dense_packet,
 )
-from ..encoder.spec import CHANNEL_LAYOUT_OFFSETS
+from ..codec.element import CHANNEL_LAYOUT_OFFSETS
 
 
 class WalkResult(NamedTuple):

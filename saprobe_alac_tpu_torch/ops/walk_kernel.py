@@ -443,7 +443,7 @@ def dense_entropy_reference(
 def dense_packet(words, size_bits, offsets, *, kb, F, C, depth, pb_cfg, mb_cfg):
     """Walk every element of every packet of a (B, W) batch of big-endian
     words in one launch.  ``offsets`` (C,) maps a bitstream channel to its
-    output channel (encoder/spec.py CHANNEL_LAYOUT_OFFSETS).
+    output channel (codec/element.py CHANNEL_LAYOUT_OFFSETS).
 
     Returns (rows (C, F_pad, B), err (B,), ns (B,), meta
     (len(PACKET_FIELDS), B, C), coefs (B, C, 32)), int32.  Channels no

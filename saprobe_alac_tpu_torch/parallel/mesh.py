@@ -1,0 +1,72 @@
+"""Packet-axis data parallelism over several devices.
+
+Counterpart of saprobe_alac_tpu/parallel/mesh.py.  ALAC packets are fully
+self-contained (own headers, own coefficients, decoder state reset per
+packet: reference decode.go:130-187), so scaling over cards is pure data
+parallelism: the bucketed batch splits into equal contiguous shards, one a
+device, and each shard runs the single-device pipeline of ops/batch.py on
+its own device.  No collectives are needed (SURVEY §2.4); the shards' bytes
+come back to the host and join in packet order.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..config import PacketConfig
+from ..ops.batch import TorchBatchDecoder, _bucket
+
+
+def make_packet_mesh(devices: Sequence | None = None) -> list[torch.device]:
+    """The devices on the packet axis: ``devices`` as torch devices, or
+    every card."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not available")
+        devices = range(torch.cuda.device_count())
+        return [torch.device("cuda", i) for i in devices]
+    return [torch.device(d) for d in devices]
+
+
+class ShardedBatchDecoder(TorchBatchDecoder):
+    """Batch decoding sharded over several devices on the packet axis.
+
+    A device may appear more than once (two shards on one card run one
+    after the other there).  A shard's device that fails raises: nothing
+    moves to another device or to the host."""
+
+    def __init__(self, config: PacketConfig, devices: Sequence | None = None):
+        self.devices = make_packet_mesh(devices)
+        if not self.devices:
+            raise ValueError("a sharded decoder needs at least one device")
+        super().__init__(config, self.devices[0])
+        # One single-device pipeline a shard, each with its own pinned
+        # download buffers.
+        self._shards = [TorchBatchDecoder(config, d) for d in self.devices]
+
+    def decode_async(self, packets: Sequence[bytes], taps: int = 9):
+        """Dispatch every shard before waiting on any; returns the shards'
+        handles with their packets.  The bucket is rounded up to a multiple
+        of the shard count (mesh.py:86-87), so every shard has the same
+        rows.  A trailing shard that would hold only padding has nothing to
+        decode and is not dispatched."""
+        n = len(self._shards)
+        rows = -(-max(_bucket(len(packets)), n) // n)
+        parts = [packets[k * rows : (k + 1) * rows] for k in range(n)]
+        return [
+            (shard.decode_async(part, taps=taps, rows=rows) if part else None, part)
+            for shard, part in zip(self._shards, parts)
+        ]
+
+    def finish_async(self, handle, packets: Sequence[bytes]) -> list[bytes]:
+        """Each shard's bytes in packet order (its error lanes on the host,
+        its 32-tap retry on its own device); `last_fallbacks` is the sum."""
+        out, fallbacks = [], 0
+        for shard, (h, part) in zip(self._shards, handle):
+            if part:
+                out += shard.finish_async(h, part)
+                fallbacks += shard.last_fallbacks
+        self.last_fallbacks = fallbacks
+        return out

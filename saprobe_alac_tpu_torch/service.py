@@ -14,8 +14,8 @@ group, ``inflight`` dispatched batches, and the decoded PCM of files whose
 packets are still in flight.  RAM is O(batch window + largest single file),
 whatever the corpus size, and the staging of the next batch overlaps the
 card's work on the previous ones through ``BatchDecoder.decode_async``.
-``backend`` is the `BatchDecoder` device: ``"cuda"`` (default), ``"cpu"``
-or ``"native"``.
+``backend`` is the `BatchDecoder` device: ``"cuda"`` (default), ``"cpu"``,
+``"native"`` or ``"scalar"``.
 """
 
 from __future__ import annotations

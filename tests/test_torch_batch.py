@@ -213,7 +213,7 @@ def test_cuda_device_raises_without_cuda():
 
 def test_default_device_is_cuda():
     dec = BatchDecoder.__init__.__defaults__, TorchBatchDecoder.__init__.__defaults__
-    assert dec == (("cuda",), ("cuda",))
+    assert dec == (("cuda",), ("cuda", False))  # TorchBatchDecoder's second: tight
     if torch.cuda.is_available():
         assert BatchDecoder(make_config(frame_length=F)).impl.device.type == "cuda"
     else:
@@ -258,6 +258,57 @@ def test_port_decodes_with_jax_blocked():
             pass
         else:
             raise AssertionError("a truncated packet decoded")
+        print("OK")
+        """
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_new_modules_run_with_jax_blocked():
+    """With JAX and the JAX package blocked, every module the port added
+    after its decode path imports and runs: the oracle (codec/) and the
+    Python encoder (encoder/bitwriter.py, encoder/encode.py), tight staging,
+    the sharded decoder (parallel/), the profiler (utils/profiling.py) and
+    the audio features (ops/audio.py)."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["saprobe_alac_tpu"] = None
+        sys.path.insert(0, {REPO!r})
+        import numpy as np
+        import torch
+        import saprobe_alac_tpu_torch as port
+        from saprobe_alac_tpu_torch import codec, decoder, parallel
+        from saprobe_alac_tpu_torch.codec import bitcursor, element, golomb, intops, matrixing, predictor
+        from saprobe_alac_tpu_torch.encoder import bitwriter, encode
+        from saprobe_alac_tpu_torch.ops import audio, batch
+        from saprobe_alac_tpu_torch.parallel import mesh
+        from saprobe_alac_tpu_torch.utils import profiling
+        t = np.arange(150)
+        cfg = port.PacketConfig(frame_length=64, bit_depth=16, num_channels=2, pb=40, mb=10,
+                                kb=14, max_run=255, max_frame_bytes=0, avg_bit_rate=0,
+                                sample_rate=44100)
+        pcm = np.stack([(4000 * np.sin(t / 7)).astype(np.int64),
+                        (4000 * np.sin(t / 5)).astype(np.int64)], 1)
+        want = pcm.astype("<i2").tobytes()
+        pkts = port.encode_packets(cfg, port.EncoderSpec(), pcm, backend="python")
+        assert b"".join(codec.decode_packet(cfg, p)[0] for p in pkts) == want
+        assert b"".join(port.BatchDecoder(cfg, "scalar").decode_packets(pkts)) == want
+        tight = batch.TorchBatchDecoder(cfg, "cpu", tight=True)
+        assert b"".join(tight.decode_packets(pkts)) == want
+        sharded = parallel.ShardedBatchDecoder(cfg, ["cpu", "cpu"])
+        assert b"".join(sharded.decode_packets(pkts)) == want
+        timer, out = profiling.profile_batch_decode(cfg, pkts, iters=1, device="cpu")
+        assert b"".join(out) == want and tuple(timer.phases) == profiling.STAGES
+        mono = audio.pcm_to_float(torch.from_numpy(pcm), 16).mean(dim=-1)[None]
+        assert audio.log_spectrogram(mono, 64, 32, 16).shape == (1, 3, 16)
         print("OK")
         """
     )

@@ -55,7 +55,7 @@ def test_multichannel_decode_matches_oracle_and_jax(depth, C, bsf, Fc):
     assert got == JaxBatchDecoder(cfg).decode_packets(pkts)
 
 
-@pytest.mark.parametrize("backend", ["native", "device"])
+@pytest.mark.parametrize("backend", ["native", "cpu"])
 @pytest.mark.parametrize("depth,C,bsf,Fc", [(16, 6, 0, 64), (24, 8, 1, 64), (20, 3, 0, 63),
                                             (32, 5, 2, 64)])
 def test_multichannel_decode_of_the_ports_own_encoders(depth, C, bsf, Fc, backend):
@@ -64,7 +64,7 @@ def test_multichannel_decode_of_the_ports_own_encoders(depth, C, bsf, Fc, backen
     cfg = make_config(depth=depth, channels=C, frame_length=Fc)
     pcm = _pcm(2 * Fc + 9, C, depth, 3 * depth + C)
     spec = encoder_spec_from_jax(EncoderSpec(bytes_shifted=bsf))
-    pkts = port_encode_packets(cfg, spec, pcm, backend=backend, device="cpu")
+    pkts = port_encode_packets(cfg, spec, pcm, backend=backend)
     dec = BatchDecoder(cfg, "cpu")
     got = dec.decode_packets(pkts)
     assert dec.impl.last_fallbacks == 0
@@ -74,7 +74,7 @@ def test_multichannel_decode_of_the_ports_own_encoders(depth, C, bsf, Fc, backen
     nbytes = {16: 2, 20: 3, 24: 3, 32: 4}[depth]
     assert b"".join(got) == raw[:, :nbytes].tobytes()
     assert pkts == native.encode_with_spec(cfg, spec, [pcm[i:i + Fc] for i in range(0, len(pcm), Fc)]) \
-        or backend == "device"
+        or backend == "cpu"
 
 
 @pytest.mark.parametrize("depth,C", [(16, 1), (16, 2), (20, 3), (24, 6), (16, 8)])

@@ -111,10 +111,11 @@ def test_bad_and_missing_files(tmp_path, capsysbinary, content, which):
 
 
 @pytest.mark.parametrize("backend,container", [("cpu", "m4a"), ("cpu", "caf"), ("native", "m4a"),
-                                               ("native", "caf")])
+                                               ("native", "caf"), ("python", "m4a")])
 def test_encode_round_trip(tmp_path, capsysbinary, backend, container):
     """alac-encode WAV -> M4A/CAF -> alac-decode gives the WAV's PCM; the
-    C++ core's files equal the JAX CLI's."""
+    C++ core's files equal the JAX CLI's (and ``python``, the Python
+    encoder, encodes too)."""
     fmt = PCMFormat(22050, 16, 2)
     pcm = music_pcm(3 * 256 + 70, 2, 16, seed=33)
     wav_in = tmp_path / "in.wav"

@@ -22,7 +22,7 @@ import torch
 from conftest import make_config, music_pcm
 
 from saprobe_alac_tpu_torch import native
-from saprobe_alac_tpu_torch.encoder.spec import CHANNEL_LAYOUT_OFFSETS
+from saprobe_alac_tpu_torch.codec.element import CHANNEL_LAYOUT_OFFSETS
 from saprobe_alac_tpu_torch.interop import encode_inputs_from_jax
 from saprobe_alac_tpu_torch.ops import encode_kernel, lpc_kernel, walk_kernel
 from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder

@@ -285,16 +285,18 @@ def test_fit_coefs_degenerate_lanes_keep_shared():
 
 
 def test_encode_packets_backends_agree_with_pinned_coefs():
-    """`encoder.encode_packets`: the device backend (on CPU tensors) and the
-    C++ host core write the same bytes given the same coefficients."""
+    """`encoder.encode_packets`: the device backend (on CPU tensors), the
+    C++ host core and the Python encoder write the same bytes given the
+    same coefficients; a word that names no backend raises."""
     cfg = make_config(depth=16, channels=2, frame_length=F)
     pcm = music_pcm(3 * F + 40, 2, 16, seed=60)
     spec = port.EncoderSpec(channel=port.ChannelSpec(order=6, coefs=_COEFS[:6]))
-    dev = port.encode_packets(cfg, spec, pcm, backend="device", device="cpu")
+    dev = port.encode_packets(cfg, spec, pcm, backend="cpu")
     assert len(dev) == 4
     assert dev == port.encode_packets(cfg, spec, pcm, backend="native")
+    assert dev == port.encode_packets(cfg, spec, pcm, backend="python")
     with pytest.raises(ValueError):
-        port.encode_packets(cfg, spec, pcm, backend="python")
+        port.encode_packets(cfg, spec, pcm, backend="device")
 
 
 def test_device_is_the_card_by_default():
@@ -362,7 +364,7 @@ def test_one_forward_lpc_launch_per_element(monkeypatch, jax_impl, channels):
     its channels' lanes (channel-major), not once per channel; the packets
     equal the JAX package's and the C++ host encoder's with pinned
     coefficients."""
-    from saprobe_alac_tpu_torch.encoder.spec import element_layout
+    from saprobe_alac_tpu_torch.codec.element import element_layout
 
     cfg = make_config(depth=16, channels=channels, frame_length=64)
     spec = spec_for(4, mix_res=1)
@@ -425,7 +427,7 @@ def test_port_encodes_with_jax_blocked():
         pcm = np.stack([(4000 * np.sin(t / 7)).astype(np.int64),
                         (4000 * np.sin(t / 5)).astype(np.int64)], 1)
         spec = port.EncoderSpec(channel=port.ChannelSpec(order=6, fit=True))
-        pkts = port.encode_packets(cfg, spec, pcm, backend="device", device="cpu")
+        pkts = port.encode_packets(cfg, spec, pcm, backend="cpu")
         dec = port.BatchDecoder(cfg, "cpu")
         assert b"".join(dec.decode_packets(pkts)) == pcm.astype("<i2").tobytes()
         assert dec.impl.last_fallbacks == 0

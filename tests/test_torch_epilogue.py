@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from saprobe_alac_tpu.ops.epilogue import extract_shift_kernel
 from saprobe_alac_tpu.ops.epilogue import finish_packed as jax_finish_packed
-from saprobe_alac_tpu_torch.encoder.spec import CHANNEL_LAYOUT_OFFSETS, element_layout
+from saprobe_alac_tpu_torch.codec.element import CHANNEL_LAYOUT_OFFSETS, element_layout
 from saprobe_alac_tpu_torch.ops.epilogue import extract_shift, finish_packed
 
 F = 64

@@ -24,6 +24,7 @@ from saprobe_alac_tpu import PacketDecoder as JaxPacketDecoder
 from saprobe_alac_tpu import decode_file as jax_decode_file
 from saprobe_alac_tpu import new_decoder as jax_new_decoder
 import saprobe_alac_tpu_torch as port
+from saprobe_alac_tpu_torch import cli as port_cli
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: (depth, channels, frame, samples, bytesShifted, window): 14 packets in
@@ -281,14 +282,59 @@ def test_unsupported_bit_depth():
             make(cfg)
 
 
-@pytest.mark.parametrize("make", ["Decoder", "PacketDecoder", "BatchDecoder"])
-def test_scalar_backend_names_the_missing_oracle(make):
-    f, _ = _case("s16")
-    with pytest.raises(ValueError, match="codec/"):
-        if make == "Decoder":
-            port.new_decoder(f.reader(), backend="scalar")
-        else:
-            getattr(port, make)(f.port_config, "scalar")
+def _scalar_decode(entry, f, tmp_path):
+    """The source file's PCM decoded by one entry point of the port with
+    ``backend="scalar"``."""
+    packets = f.packets
+    cfg = f.port_config
+    if entry == "Decoder":
+        return port.new_decoder(f.reader(), backend="scalar", batch_size=5).read()
+    if entry == "Decoder-one-packet":
+        return port.Decoder(f.reader(), backend="scalar", batch_size=1).read()
+    if entry == "decode_file":
+        fmt, samples = port.decode_file(f.reader(), backend="scalar")
+        return port.utils.array_to_pcm_bytes(fmt, samples)
+    if entry == "PacketDecoder":
+        dec = port.PacketDecoder(cfg, "scalar")
+        return b"".join(dec.decode_packet(p) for p in packets)
+    if entry == "BatchDecoder":
+        dec = port.BatchDecoder(cfg, "scalar")
+        handle = dec.decode_async(packets[3:])
+        return b"".join(dec.decode_packets(packets[:3]) + dec.finish_async(handle, packets[3:]))
+    if entry == "service":
+        (res,) = port.decode_corpus([f.reader()], backend="scalar", batch_size=4)
+        return res.pcm
+    path, out = tmp_path / "in.m4a", tmp_path / "out.pcm"
+    path.write_bytes(f.blob)
+    assert port_cli.main(["-format", "pcm", "-backend", "scalar", "-batch", "3", str(path),
+                          str(out)]) == 0
+    return out.read_bytes()
+
+
+SCALAR_ENTRIES = ["Decoder", "Decoder-one-packet", "decode_file", "PacketDecoder",
+                  "BatchDecoder", "service", "cli"]
+
+
+@pytest.mark.parametrize("entry", SCALAR_ENTRIES)
+def test_scalar_backend_decodes_to_the_jax_oracles_bytes(entry, tmp_path):
+    """``backend="scalar"`` decodes through the port's own oracle at every
+    entry point: the JAX package's oracle's bytes (its facade on
+    ``"scalar"``), which are the source's."""
+    f, _ = _case("s24_shift1")
+    want = jax_new_decoder(f.reader(), backend="scalar").read()
+    assert want == f.source
+    assert _scalar_decode(entry, f, tmp_path) == want
+
+
+def test_scalar_packet_decoder_raises_the_oracles_class():
+    """A truncated packet on ``"scalar"``: the class the JAX oracle raises."""
+    f, _ = _case("c6")
+    bad = f.packets[1][: len(f.packets[1]) // 2]
+    with pytest.raises(port.DecodeError) as mine:
+        port.PacketDecoder(f.port_config, "scalar").decode_packet(bad)
+    with pytest.raises(Exception) as ref:
+        JaxPacketDecoder(f.config, "scalar").decode_packet(bad)
+    assert type(mine.value).__name__ == type(ref.value).__name__
 
 
 def test_cuda_decoder_raises_without_a_card():

@@ -4,6 +4,7 @@ by config over M4A and CAF files, results in input order, completion-order
 streaming with a small window, one file spanning many batches, paths and
 file objects, an empty file and an empty corpus."""
 
+import io
 import threading
 
 import pytest
@@ -88,8 +89,20 @@ def test_cuda_service_raises_without_a_card():
 
 
 def test_scalar_backend_raises():
-    with pytest.raises(ValueError, match="codec/"):
-        port.decode_corpus([alac_file(16, 2, 128, 300, seed=51).reader()], backend="scalar")
+    """``backend="scalar"`` decodes a clean file to the source and raises
+    the JAX scalar service's class on a file with a packet that opens with
+    a CCE element (tag 2)."""
+    f = alac_file(16, 2, 128, 300, seed=51)
+    (res,) = port.decode_corpus([f.reader()], backend="scalar")
+    assert res.pcm == f.source
+    bad = bytearray(f.blob)
+    first = bad.index(f.packets[1])
+    bad[first : first + len(f.packets[1])] = b"\x40" * len(f.packets[1])
+    with pytest.raises(port.DecodeError) as mine:
+        port.decode_corpus([io.BytesIO(bytes(bad))], backend="scalar")
+    with pytest.raises(Exception) as ref:
+        jax_decode_corpus([io.BytesIO(bytes(bad))], backend="scalar")
+    assert type(mine.value).__name__ == type(ref.value).__name__
 
 
 def test_corpus_iter_threads():
