@@ -173,6 +173,23 @@ Phases, one line each (any failure raises and exits non-zero):
      PacketDecoder(cfg, "scalar"), and encode_packets(..., backend=
      "python") on 16 packets of phase 4's PCM decoded on the card: bytes
      equal to the source.
+ 22. the decode programs (`programs_phase`; every decode_async above runs
+     through them: a key's first use eager, its second captured as a CUDA
+     graph, later ones one replay): (a) on phases 4's, 7's and 15's batches
+     and phase 3's ragged batch (at 32 and 9 taps), padded and tight, the
+     third call on a key is one replay that runs no eager decode and counts
+     its capture's launches once, and its packed, err, ns and wide equal
+     `_decode_core`'s eager outputs on the same static inputs, byte for
+     byte; bytes equal to the source, the ragged batch's error lanes and
+     outcome those of the eager run; (b) each captured shape's capture ms,
+     pool bytes (torch.cuda.memory_reserved before and after) and the
+     kernels and copies one replay enqueues against one eager call
+     (torch.profiler); (c) decode_async's host ms and the card's tail after
+     it, eager against replay, on a window of 64 and on phase 4's batch
+     (medians of 30 runs in turns); (d) warm B=32 decode_packets latency,
+     eager against replay (median and p90 of 30 runs in turns); (e) two
+     threads, each on its own CUDA stream, sharing one decoder on phase 4's
+     batch and random slices of it: every slice equal to the source.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its path, on phase 20's paths as ``launches_phase20_*`` and on
 phase 21's as ``launches_phase21_*``,
@@ -589,10 +606,11 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
             raise AssertionError(f"phase 20 {where}: {fallbacks[0]} packets decoded on the host")
 
     def launched(where, names, counts):
+        """The path kernels' launches, and the decode programs' replays."""
         missing = [k for k in names if counts[k] == 0]
         if missing:
             raise AssertionError(f"phase 20 {where}: no launch of {missing} ({counts})")
-        return {k: counts[k] for k in names}
+        return {k: counts[k] for k in (*names, "replay")}
 
     res, launches = {}, {}
     TorchBatchDecoder.finish_async = counted_finish
@@ -867,6 +885,7 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
     from saprobe_alac_tpu_torch.encoder import EncoderSpec, encode_packets
     from saprobe_alac_tpu_torch.ops.audio import log_spectrogram, pcm_to_float
     from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
+    from saprobe_alac_tpu_torch.ops.program import payload
     from saprobe_alac_tpu_torch.parallel import ShardedBatchDecoder
     from saprobe_alac_tpu_torch.utils.profiling import profile_batch_decode
 
@@ -882,8 +901,8 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
         if any(n != per for n in got.values()):
             raise AssertionError(f"phase 21 {where}: launches {counts}, want {per} of each "
                                  f"of {kernels_of(c)}")
-        total = launches.setdefault(path, {"packet": 0, "lpc": 0, "raw_read": 0})
-        for k, n in got.items():
+        total = launches.setdefault(path, {"packet": 0, "lpc": 0, "raw_read": 0, "replay": 0})
+        for k, n in (*got.items(), ("replay", counts["replay"])):
             total[k] += n
 
     def clean(where, *decoders):
@@ -910,7 +929,7 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
         del out
         r = {}
         for way, dec in (("padded", padded), ("tight", tight)):
-            r[f"{way}_h2d_bytes"] = sum(a.nbytes for a in dec._host_stage(pk)[:3])
+            r[f"{way}_h2d_bytes"] = sum(a.nbytes for a in payload(dec._host_stage(pk)))
             r[f"{way}_s"] = summary(host_times(lambda: dec.decode_packets(pk), runs=runs))
         res[f"tight_{label}"] = r
         lines.append(
@@ -1039,6 +1058,257 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
           f"packet, {res['host']['python_packet_bytes']} bytes against the C++ core's "
           f"{res['host']['native_packet_bytes']}), decoded on the card == source")
     return res, launches
+
+
+def enqueued(fns):
+    """One torch.profiler session over ``fns`` ({label: fn}): each fn once to
+    warm the profiler, then once inside a marker that ends in a
+    synchronise.  Returns {label: {"kernels", "kernel_ms", "copies",
+    "copy_ms"}}: the device events that started inside the label's marker
+    (kernels; copies and memsets) and their summed device ms, or None where
+    the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        for label, fn in fns.items():
+            with record_function(f"enqueued::{label}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    out = {}
+    for label in fns:
+        mark = next(e for e in events if e.name == f"enqueued::{label}"
+                    and e.device_type != DeviceType.CUDA)
+        n, us = {"kernels": 0, "copies": 0}, {"kernels": 0.0, "copies": 0.0}
+        for e in events:
+            if (e.device_type != DeviceType.CUDA or e.name.startswith("enqueued::")
+                    or not mark.time_range.start <= e.time_range.start <= mark.time_range.end):
+                continue
+            kind = "copies" if e.name.startswith(("Memcpy", "Memset")) else "kernels"
+            n[kind] += 1
+            us[kind] += e.time_range.elapsed_us()
+        out[label] = {"kernels": n["kernels"], "kernel_ms": us["kernels"] / 1e3,
+                      "copies": n["copies"], "copy_ms": us["copies"] / 1e3} if any(
+                          n.values()) else None
+    return out
+
+
+def enqueue_times(fns, runs):
+    """{label: {"host_ms", "tail_ms"}} of ``fns`` ({label: fn}) in turns
+    (the order reversed every run): the host's ms inside fn(), and the
+    card's ms after it until a synchronise returns; medians of ``runs``."""
+    ts = {label: ([], []) for label in fns}
+    for r in range(runs):
+        for label in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[label]()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ts[label][0].append((t1 - t0) * 1e3)
+            ts[label][1].append((t2 - t1) * 1e3)
+    return {label: {"host_ms": statistics.median(h), "tail_ms": statistics.median(t),
+                    "host_ms_min": min(h), "host_ms_max": max(h)}
+            for label, (h, t) in ts.items()}
+
+
+def programs_phase(port, tag, dev, batches, ragged, runs=30):
+    """Phase 22: the decode programs (ops/program.py) on the card.
+    ``batches``: {label: (config, packets, source PCM)} for phase 4's,
+    phase 7's and phase 15's batches ("16-bit stereo" among them);
+    ``ragged``: phase 3's (config, packets).  (a) On each batch, padded and
+    tight (the ragged one at 9 and 32 taps): the key's first use runs
+    eagerly, the second captures, the third is one replay that calls no
+    eager decode and counts its kernels once; the replay's four outputs
+    equal `_decode_core`'s eager outputs on the same static inputs, byte
+    for byte; the bytes equal the source (the ragged batch: the same error
+    lanes and outcome as the eager run).  (b) Each captured shape's capture
+    ms, pool bytes, and the kernels and copies one replay enqueues against
+    one eager call (torch.profiler).  (c) decode_async's host ms and the
+    card's tail after it, eager against replay, on a window of 64 of phase
+    20's track shape and on phase 4's batch.  (d) Warm B=32 decode_packets
+    latency, eager against replay.  (e) Two threads, each on its own
+    stream, share one decoder on phase 4's batch.  Raises on any
+    difference.  Returns the phase's numbers."""
+    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder, _program_key
+    from saprobe_alac_tpu_torch.ops.walk import ERR_NONE
+
+    res = {"shapes": {}}
+
+    def outcome(fn):
+        try:
+            return fn()
+        except port.AlacError as exc:
+            return type(exc).__name__
+
+    def through_programs(label, dec, pk, taps=9):
+        """Three decode_async calls on one key: eager, capture, replay.
+        Returns (program, the replay's handle, its eager twin)."""
+        key = _program_key(dec._host_stage(pk), taps)
+        dec.decode_async(pk, taps=taps)
+        prog = dec._programs[key]
+        if prog.graph is not None or prog.uses != 1:
+            raise AssertionError(f"phase 22 (a) {label}: the first use was not eager")
+        dec.decode_async(pk, taps=taps)
+        if prog.graph is None:
+            raise AssertionError(f"phase 22 (a) {label}: the second use did not capture")
+        core, eager_calls = prog.core, [0]
+
+        def counted(*a):
+            eager_calls[0] += 1
+            return core(*a)
+
+        prog.core = counted
+        port.reset_launch_counts()
+        handle = dec.decode_async(pk, taps=taps)
+        counts = port.launch_counts()
+        prog.core = core
+        want = dict(prog.launches, replay=1)
+        if eager_calls[0] or {k: n for k, n in counts.items() if n} != want:
+            raise AssertionError(f"phase 22 (a) {label}: a warm call ran {eager_calls[0]} eager "
+                                 f"decodes, launches {counts}, want {want}")
+        eager = core(*prog.inputs)
+        for name, a, b in zip(("packed", "err", "ns", "wide"), handle, eager):
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"phase 22 (a) {label}: the replay's {name} differs from "
+                                     "the eager run's")
+        res["shapes"][label] = {"key": list(prog.key), "capture_ms": prog.capture_ms,
+                                "pool_bytes": prog.pool_bytes, "launches": prog.launches}
+        return prog, handle, eager
+
+    # ---- (a) replay against eager, byte for byte ----
+    progs = {}
+    for label, (c, pk, pcm) in batches.items():
+        for tight in (False, True):
+            name = f"{label} {'tight' if tight else 'padded'}"
+            dec = TorchBatchDecoder(c, dev, tight=tight)
+            prog, handle, _ = through_programs(name, dec, pk)
+            check_decode(dec.finish_async(handle, pk), pcm, c.bit_depth)
+            if dec.last_fallbacks:
+                raise AssertionError(f"phase 22 (a) {name}: host fallbacks on clean music")
+            progs[name] = (dec, prog, pk)
+    c3, pk3 = ragged
+    for tight in (False, True):
+        way = "tight" if tight else "padded"
+        dec = TorchBatchDecoder(c3, dev, tight=tight)
+        lanes = None
+        # 32 taps first: the 9-tap handle's finish_async re-runs at 32.
+        for taps in (32, 9):
+            name = f"ragged {way} taps {taps}"
+            prog, handle, eager = through_programs(name, dec, pk3, taps)
+            bad = torch.nonzero(handle[1][: len(pk3)] != ERR_NONE).flatten().tolist()
+            if len(bad) < 2 or (lanes is not None and bad != lanes):
+                raise AssertionError(f"phase 22 (a) {name}: error lanes {bad}")
+            lanes = bad
+            got = outcome(lambda: dec.finish_async(handle, pk3))
+            if got != outcome(lambda: dec.finish_async(eager, pk3)):
+                raise AssertionError(f"phase 22 (a) {name}: the outcome differs from eager")
+            progs[name] = (dec, prog, pk3)
+        res[f"ragged_{way}"] = {"error_lanes": lanes,
+                                "outcome": got if isinstance(got, str) else "bytes"}
+    print(f"phase 22 {tag} (a) programs: on phases 4, 7 and 15's B=2048 batches and phase 3's "
+          f"ragged batch (9 and 32 taps), padded and tight, the first use ran eagerly, the "
+          f"second captured, the third was one replay (launches = the capture's, replay 1, no "
+          f"eager decode) whose packed, err, ns and wide == _decode_core's eager outputs on the "
+          f"same static inputs; bytes == source, host fallbacks 0; ragged: error lanes "
+          f"{res['ragged_padded']['error_lanes']}, outcome {res['ragged_padded']['outcome']} "
+          f"== eager's")
+
+    # ---- (b) each shape: capture, pool, kernels a replay against an eager call ----
+    fns = {}
+    for name, (dec, prog, pk) in progs.items():
+        taps = prog.key[2]
+        fns[f"{name} replay"] = lambda dec=dec, pk=pk, taps=taps: dec.decode_async(pk, taps=taps)
+        fns[f"{name} eager"] = lambda prog=prog: prog.core(*prog.inputs)
+    seen = enqueued(fns)
+    for name, (dec, prog, pk) in progs.items():
+        shape = res["shapes"][name]
+        shape["replay"], shape["eager"] = seen[f"{name} replay"], seen[f"{name} eager"]
+        shape["kernels_by_launch_counts"] = sum(prog.launches.values())
+    print(f"phase 22 {tag} (b) each shape: capture ms, pool bytes (torch.cuda.memory_reserved "
+          "before and after), kernels and copies one replay (decode_async) enqueues against one "
+          "eager _decode_core call (torch.profiler; None: no device event seen): " + "; ".join(
+              f"{name}: capture {s['capture_ms']:.1f} ms, pool {s['pool_bytes']}, replay "
+              f"{s['replay']}, eager {s['eager']}" for name, s in res["shapes"].items()))
+    for dec, _, _ in progs.values():
+        for p in dec._programs.values():
+            p.release()
+        dec._programs.clear()
+    del progs, fns
+
+    # ---- (c) decode_async on the host and the card's tail: eager against replay ----
+    c4, pk4, pcm4 = batches["16-bit stereo"]
+    for label, pk in (("window64", pk4[:64]), ("B2048", pk4)):
+        dec = TorchBatchDecoder(c4, dev)
+        dec.decode_async(pk)
+        (prog,) = dec._programs.values()
+        res[f"enqueue_{label}"] = enqueue_times({
+            "eager": lambda dec=dec, pk=pk, prog=prog: prog.core(*dec._stage(pk)),
+            "replay": lambda dec=dec, pk=pk: dec.decode_async(pk),
+        }, runs=max(20, runs // 2 * 2))
+    print(f"phase 22 {tag} (c) decode_async, ms (medians of {max(20, runs // 2 * 2)} runs in "
+          f"turns): window of 64 (16-bit stereo F={F}, phase 20's track shape) "
+          f"{json.dumps(res['enqueue_window64'])}; B={len(pk4)} {json.dumps(res['enqueue_B2048'])}")
+
+    # ---- (d) warm B=32 decode_packets latency: eager against replay ----
+    pk32 = pk4[:32]
+    dec = TorchBatchDecoder(c4, dev)
+    check_decode(dec.decode_packets(pk32), pcm4[: 32 * F], 16)
+    (prog,) = dec._programs.values()
+    ways = {"eager": lambda: dec.finish_async(prog.core(*dec._stage(pk32)), pk32),
+            "replay": lambda: dec.decode_packets(pk32)}
+    for fn in ways.values():
+        check_decode(fn(), pcm4[: 32 * F], 16)
+    lat = {k: [] for k in ways}
+    for r in range(runs):
+        for k in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
+            t0 = time.perf_counter()
+            ways[k]()
+            lat[k].append((time.perf_counter() - t0) * 1e3)
+    res["latency_warm_b32_ms"] = {
+        k: {"median": statistics.median(v), "p90": float(np.percentile(v, 90)), "min": min(v)}
+        for k, v in lat.items()}
+    print(f"phase 22 {tag} (d) warm B=32 F={F} 16-bit stereo decode_packets, ms ({runs} runs "
+          f"in turns): {json.dumps(res['latency_warm_b32_ms'])}")
+
+    # ---- (e) two threads, each on its own stream, one decoder ----
+    src = pcm_bytes(pcm4, 16)
+    per = len(src) // len(pcm4) * F
+    shared = TorchBatchDecoder(c4, dev)
+    barrier = threading.Barrier(2)
+
+    def worker(k):
+        stream = torch.cuda.Stream()
+        rng = random.Random(SEED + 22 + k)
+        bad, n_dec = [], 0
+        barrier.wait()
+        with torch.cuda.stream(stream):
+            for i in range(6):
+                lo, hi = (0, len(pk4)) if i % 2 == 0 else sorted(rng.sample(range(len(pk4) + 1), 2))
+                out = shared.decode_packets(pk4[lo:hi])
+                bad += [j for j, o in zip(range(lo, hi), out) if o != src[j * per : (j + 1) * per]]
+                n_dec += hi - lo
+        return bad, n_dec
+
+    with ThreadPoolExecutor(2) as pool:
+        runs_e = list(pool.map(worker, range(2)))
+    bad = sorted({j for b, _ in runs_e for j in b})
+    if bad or shared.last_fallbacks:
+        raise AssertionError(f"phase 22 (e): packets {bad[:8]} differ from the source on two "
+                             f"streams ({shared.last_fallbacks} host fallbacks)")
+    res["two_streams"] = {"packets": sum(n for _, n in runs_e),
+                          "programs": [list(k) for k in shared._programs],
+                          "uses": [p.uses for p in shared._programs.values()]}
+    print(f"phase 22 {tag} (e) two threads on two streams, one decoder, phase 4's batch and "
+          f"random slices ({res['two_streams']['packets']} packets): every slice == source, host "
+          f"fallbacks 0; programs {res['two_streams']['programs']} used "
+          f"{res['two_streams']['uses']} times")
+    return res
 
 
 def main() -> int:
@@ -2250,11 +2520,17 @@ def main() -> int:
 
     # ---- phase 21: tight staging, sharding, the profiler, features, host backends ----
     t21 = time.perf_counter()
-    res21, l21 = new_paths_phase(
-        port, tag, dev, {"16-bit stereo": (cfg, pkts, pcm), "96 kHz 24-bit stereo":
-                         (hcfg, hpkts, hpcm), "7.1": (scfg, spkts, spcm)}, ragged3)
+    main_batches = {"16-bit stereo": (cfg, pkts, pcm), "96 kHz 24-bit stereo": (hcfg, hpkts, hpcm),
+                    "7.1": (scfg, spkts, spcm)}
+    res21, l21 = new_paths_phase(port, tag, dev, main_batches, ragged3)
     res21["phase_s"] = time.perf_counter() - t21
     print(f"phase 21 {tag} numbers: {json.dumps(res21)}")
+
+    # ---- phase 22: the decode programs, replay against eager ----
+    t22 = time.perf_counter()
+    res22 = programs_phase(port, tag, dev, main_batches, ragged3)
+    res22["phase_s"] = time.perf_counter() - t22
+    print(f"phase 22 {tag} numbers: {json.dumps(res22)}")
 
     def phase21(kernel):
         """A kernel's launches on each of phase 21's paths, as JSON keys."""

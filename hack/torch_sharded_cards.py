@@ -9,8 +9,10 @@ and on phase 4's first 2047 packets.
 For each batch: `BatchDecoder(cfg)` must build the sharded decoder; its
 bytes must equal the source and the one-card decoder's, with each path
 kernel launched once a shard and every shard's output on its own card; then
-both are timed by the host clock (median of 5 warm runs).  Prints a JSON
-line per batch and OK; raises on any difference.
+both are timed by the host clock (median of 5 warm runs); then one more
+sharded call, a replay of each shard's decode program on its card, must give
+the same bytes.  Prints a JSON line per batch and OK; raises on any
+difference.
 """
 
 from __future__ import annotations
@@ -70,6 +72,13 @@ def main() -> int:
         res = {"cards": n, "shard_devices": devices, "launches": launches,
                "sharded_s": cs.summary(cs.host_times(lambda: bd.decode_packets(pk))),
                "one_card_s": cs.summary(cs.host_times(lambda: one.decode_packets(pk)))}
+        # Warm now: each shard's call is one replay of its program on its card.
+        port.reset_launch_counts()
+        if bd.decode_packets(pk) != out:
+            raise AssertionError(f"{label}: the sharded replays' bytes differ")
+        res["launches_warm"] = port.launch_counts()
+        if res["launches_warm"]["replay"] != n:
+            raise AssertionError(f"{label}: warm launches {res['launches_warm']}, want {n} replays")
         print(label, json.dumps(res), flush=True)
     print("OK")
     return 0

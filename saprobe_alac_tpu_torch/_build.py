@@ -13,11 +13,14 @@ file lock so concurrent processes build once.  A missing compiler or a
 failed build raises; nothing falls back to another path.
 
 Each kernel wrapper bumps its entry in the launch counters right where it
-launches, so a run can show which kernels its main path went through.
+launches, so a run can show which kernels its main path went through.  A
+CUDA graph replay runs no wrapper: the decode program adds the counts its
+capture recorded (ops/program.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -42,15 +45,34 @@ _HEADERS = ("alac_int.cuh", "element_walk.cuh")
 _lock = threading.Lock()
 _lib = None
 
-#: Launches per kernel since the last reset (plain integers).
+#: Launches per kernel since the last reset (plain integers), and
+#: "replay": the decode programs' CUDA graph replays (ops/program.py).
 _launches = {
     "element": 0, "lpc": 0, "raw_read": 0, "lpc_forward": 0, "encode": 0, "packet": 0,
-    "dense_entropy": 0,
+    "dense_entropy": 0, "replay": 0,
 }
+#: A thread's launches go here instead while it captures a CUDA graph
+#: (`recording_launches`): a capture enqueues nothing.
+_recording = threading.local()
 
 
-def count_launch(name: str) -> None:
-    _launches[name] += 1
+def count_launch(name: str, n: int = 1) -> None:
+    rec = getattr(_recording, "counts", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + n
+    else:
+        _launches[name] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's `count_launch` calls fill the yielded
+    dict and leave the counters alone."""
+    _recording.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _recording.counts = None
 
 
 def launch_counts() -> dict[str, int]:

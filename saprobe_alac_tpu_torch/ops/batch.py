@@ -1,4 +1,4 @@
-"""Batch decode orchestration: host packing -> device phases -> host bytes.
+"""Batch decode orchestration: host packing -> device program -> host bytes.
 
 Counterpart of saprobe_alac_tpu/ops/batch.py `JaxBatchDecoder`: 16-, 20-,
 24- and 32-bit streams of C = 1..8 channels in every element layout.  Every
@@ -11,6 +11,12 @@ JAX package's error contract (batch.py:32-51, 380-390): the repo's C++ host
 core (``..native``), and the scalar oracle (``..codec``) for a packet the
 core rejects, so it raises the oracle's typed exception.
 
+As the JAX package compiles one program per (config, batch bucket, width
+bucket, taps) and reuses it (batch.py:78-138), a decoder keeps one
+`DecodeProgram` per (rows, width, taps, staging) key (ops/program.py): the
+device part of a call, `_decode_core`, runs eagerly at a key's first use,
+is captured as a CUDA graph at its second, and is one graph replay after.
+
 Staging is padded by default: the core packs each packet into a row of the
 batch's bucketed width.  ``tight=True`` uploads the packets back to back
 instead, each padded only to its own word, with their word offsets, and
@@ -21,6 +27,8 @@ builds the padded rows on the device with one masked gather (batch.py:106-137,
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
+from functools import partial
 from typing import Sequence
 
 import numpy as np
@@ -32,7 +40,8 @@ from ..config import PacketConfig
 from ..errors import ConfigError, UnsupportedBitDepth
 from .epilogue import extract_shift, finish_packed
 from .lpc import lpc_batch
-from .walk import ERR_NONE, walk_batch
+from .program import MAX_PROGRAMS, DecodeProgram
+from .walk import ERR_NONE, channel_offsets, walk_batch
 
 
 def _host_decode(config: PacketConfig, packets: Sequence[bytes]) -> list[bytes]:
@@ -63,6 +72,70 @@ def _byteswap(w: torch.Tensor) -> torch.Tensor:
     return ((w >> 24) & 0xFF) | ((w >> 8) & 0xFF00) | ((w & 0xFF00) << 8) | (w << 24)
 
 
+def _tight_rows(flat, starts, sizes, Wb):
+    """The padded rows (B, Wb) from a tight buffer of little-endian words:
+    swapped once to big-endian and gathered from each row's word offset,
+    zero at and past ceil(size_bits / 32), so a row reads zeros past its
+    packet as the padded rows' guard words give (batch.py:106-137)."""
+    col = torch.arange(Wb, dtype=torch.int32, device=flat.device)
+    words = _byteswap(flat)[starts[:, None] + col[None, :]]
+    return torch.where(col[None, :] < ((sizes + 31) >> 5)[:, None], words, 0)
+
+
+def _decode_core(words, sizes, *, F, C, depth, pb, mb, kb, taps, offsets):
+    """The device part of a batch decode, from the staged rows (B, W) of
+    big-endian words and their size_bits to (packed, err, ns, wide)
+    (batch.py:140-243): the packet walk, the LPC at ``taps``, the shift
+    region's reads at 24/32 bits, and the epilogue.  A pure function of
+    device tensors whose shapes the program key fixes: no host sync and no
+    host-to-device copy, so a CUDA graph can capture it.  ``offsets``:
+    `walk.channel_offsets(C)` on the batch's device."""
+    w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=pb, mb=mb, kb=kb, offsets=offsets)
+    L = words.shape[0] * C
+    mix = lpc_batch(
+        w.res,
+        w.order.T.reshape(L),
+        w.mode.T.reshape(L),
+        w.den.T.reshape(L),
+        w.cb.T.reshape(L),
+        w.ns.repeat(C),
+        w.coefs.transpose(0, 1).reshape(L, 32),
+        F=F,
+        taps=taps,
+    )
+    if taps == 9:
+        wide = ((w.order >= 9) & (w.order <= 30)).any(dim=1)
+    else:
+        wide = torch.zeros_like(w.err, dtype=torch.bool)
+    # Only the 24/32-bit writers re-insert shift bits (epilogue.py); the
+    # reader runs for every such batch, as in the JAX package's dense path.
+    shift_vals = None
+    if depth in (24, 32):
+        shift_vals = extract_shift(words, w.shift_base, w.bs, w.role, w.ns, F=F, C=C)
+    packed = finish_packed(
+        mix, shift_vals, w.bs, w.mixbits, w.mixres, w.role, w.out_chan, w.filled,
+        C=C, depth=depth,
+    )
+    return packed, w.err, w.ns, wide
+
+
+def _decode_tight(flat, starts, sizes, *, Wb, **core):
+    """`_decode_core` on the rows of a tight buffer (`_tight_rows`), as the
+    JAX package's `_decode_batch_tight` wraps its core."""
+    return _decode_core(_tight_rows(flat, starts, sizes, Wb), sizes, **core)
+
+
+def _program_key(host: tuple, taps: int) -> tuple:
+    """A `DecodeProgram`'s key from `_host_stage`'s tuple: (rows, W, taps,
+    tight, flat words).  The tight buffer's capacity is the bucket of its
+    size, so calls of one bucket share a program."""
+    if len(host) == 2:
+        words, _ = host
+        return (words.shape[0], words.shape[1], taps, False, 0)
+    flat, _, sizes, Wb = host
+    return (sizes.shape[0], Wb, taps, True, _bucket(flat.size))
+
+
 class TorchBatchDecoder:
     """Device-batched packet decoding for one PacketConfig on one device.
 
@@ -90,7 +163,14 @@ class TorchBatchDecoder:
         # Pinned download buffers not in use: each call in flight takes one
         # of its own, so threads that share a decoder never share a buffer.
         self._pinned_free: list[torch.Tensor] = []
+        # Held around a program's fill, run and clone, and for the pinned
+        # buffers' free list.
         self._lock = threading.Lock()
+        # walk.channel_offsets on the device, built at the first program
+        # (constructing a decoder touches no device).
+        self._offsets = None
+        #: The decode programs by key, least recently used first.
+        self._programs: OrderedDict[tuple, DecodeProgram] = OrderedDict()
 
     def _host_stage(self, packets: Sequence[bytes], rows: int | None = None) -> tuple:
         """The host arrays a batch uploads, ``rows`` rows (by default the
@@ -110,8 +190,8 @@ class TorchBatchDecoder:
         Wb = _bucket((longest + 3) // 4 + native.GUARD_WORDS, floor=16)
         # A row gathers Wb words from its offset: size the buffer past the
         # last packet's slice of Wb words, so no row reads beyond it.  (The
-        # JAX package also buckets this size, to bound its recompiles; the
-        # port compiles nothing per shape, so it uploads no more.)
+        # program's buffer is the bucket of this size, as the JAX package's,
+        # but only the packets' words are uploaded: program.payload.)
         last = int(offs[len(packets) - 1]) if packets else 0
         flat = np.zeros(4 * max(int(wc.sum()) + native.GUARD_WORDS, last + Wb), np.uint8)
         for p, o in zip(packets, (4 * offs[: len(packets)]).tolist()):
@@ -119,21 +199,14 @@ class TorchBatchDecoder:
         return flat.view(np.int32), offs.astype(np.int32), sizes, Wb
 
     def _stage(self, packets: Sequence[bytes], rows: int | None = None):
-        """Stage a batch on the device: (words (rows, W), size_bits (rows,)),
-        words big-endian as the walk reads them.  Tight staging uploads the
-        packets back to back, swaps the words' bytes on the device, once,
-        and gathers each row from its offset, zero at and past
-        ceil(size_bits / 32): a row reads zeros past its packet, as the
-        padded rows' guard words give (batch.py:106-137)."""
+        """Stage a batch on the device, outside any program: (words (rows,
+        W), size_bits (rows,)), words big-endian as the walk reads them
+        (tight staging: swapped and gathered on the device, `_tight_rows`)."""
         host = self._host_stage(packets, rows)
         up = [torch.from_numpy(a).to(self.device) for a in host[:3]]
         if not self.tight:
             return up[0], up[1]
-        flat, offsets, sizes = _byteswap(up[0]), up[1], up[2]
-        col = torch.arange(host[3], dtype=torch.int32, device=self.device)
-        words = flat[offsets[:, None] + col[None, :]]
-        words = torch.where(col[None, :] < ((sizes + 31) >> 5)[:, None], words, 0)
-        return words, sizes
+        return _tight_rows(*up, host[3]), up[2]
 
     def _download(self, t: torch.Tensor) -> tuple[np.ndarray, torch.Tensor | None]:
         """Device -> host through a pinned buffer: on an H100 a pageable copy
@@ -158,41 +231,32 @@ class TorchBatchDecoder:
                 self._pinned_free.append(buf)
 
     def decode_async(self, packets: Sequence[bytes], taps: int = 9, rows: int | None = None):
-        """Dispatch a batch; returns device tensors (packed, err, ns, wide)
-        without waiting for the device.  ``taps=9`` serves orders up to 8;
-        finish_async re-runs at 32 taps when ``wide`` flags an order 9..30,
-        staged as the first run was.  ``rows``: the batch's rows (by default
-        the bucket of its size)."""
+        """Dispatch a batch through its key's program; returns device tensors
+        (packed, err, ns, wide) of its own, without waiting for the device.
+        ``taps=9`` serves orders up to 8; finish_async re-runs at 32 taps
+        when ``wide`` flags an order 9..30, staged as the first run was.
+        ``rows``: the batch's rows (by default the bucket of its size)."""
+        host = self._host_stage(packets, rows)
+        with self._lock:
+            return self._program(_program_key(host, taps)).run(host)
+
+    def _program(self, key: tuple) -> DecodeProgram:
+        """The key's program, made on first use; the least recently used
+        beyond MAX_PROGRAMS is released.  The caller holds the lock."""
+        prog = self._programs.get(key)
+        if prog is not None:
+            self._programs.move_to_end(key)
+            return prog
+        while len(self._programs) >= MAX_PROGRAMS:
+            self._programs.popitem(last=False)[1].release()
         cfg = self.config
-        words, sizes = self._stage(packets, rows)
-        F, C, depth = cfg.frame_length, cfg.num_channels, cfg.bit_depth
-        w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=cfg.pb, mb=cfg.mb, kb=cfg.kb)
-        L = words.shape[0] * C
-        mix = lpc_batch(
-            w.res,
-            w.order.T.reshape(L),
-            w.mode.T.reshape(L),
-            w.den.T.reshape(L),
-            w.cb.T.reshape(L),
-            w.ns.repeat(C),
-            w.coefs.transpose(0, 1).reshape(L, 32),
-            F=F,
-            taps=taps,
-        )
-        if taps == 9:
-            wide = ((w.order >= 9) & (w.order <= 30)).any(dim=1)
-        else:
-            wide = torch.zeros_like(w.err, dtype=torch.bool)
-        # Only the 24/32-bit writers re-insert shift bits (epilogue.py); the
-        # reader runs for every such batch, as in the JAX package's dense path.
-        shift_vals = None
-        if depth in (24, 32):
-            shift_vals = extract_shift(words, w.shift_base, w.bs, w.role, w.ns, F=F, C=C)
-        packed = finish_packed(
-            mix, shift_vals, w.bs, w.mixbits, w.mixres, w.role, w.out_chan, w.filled,
-            C=C, depth=depth,
-        )
-        return packed, w.err, w.ns, wide
+        if self._offsets is None:
+            self._offsets = channel_offsets(cfg.num_channels, self.device)
+        kw = dict(F=cfg.frame_length, C=cfg.num_channels, depth=cfg.bit_depth, pb=cfg.pb,
+                  mb=cfg.mb, kb=cfg.kb, taps=key[2], offsets=self._offsets)
+        core = partial(_decode_tight, Wb=key[1], **kw) if key[3] else partial(_decode_core, **kw)
+        prog = self._programs[key] = DecodeProgram(key, self.device, core)
+        return prog
 
     def _to_bytes(self, packed_row: np.ndarray, ns: int) -> bytes:
         """One packet's PCM from its finish_packed row (batch.py:348-364)."""

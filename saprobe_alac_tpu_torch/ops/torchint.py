@@ -36,34 +36,50 @@ def _like(v: torch.Tensor, x) -> torch.Tensor:
     return wrap(v).to(dtype)
 
 
-def _bad(n) -> torch.Tensor:
-    n = _long(n)
-    return (n >= 32) | (n < 0), n.clamp(0, 31)
+def _bad(n):
+    """(count out of range, count clamped to 0..31): tensors for a tensor
+    count, Python values for a Python int, so a constant count makes no host
+    tensor (a CUDA op would copy it to the card, which a CUDA graph capture
+    refuses)."""
+    if isinstance(n, torch.Tensor):
+        n = n.to(torch.int64)
+        return (n >= 32) | (n < 0), n.clamp(0, 31)
+    return not 0 <= n < 32, min(max(n, 0), 31)
+
+
+def _pick(cond, a, b):
+    """``torch.where(cond, a, b)``; for a Python ``cond``, ``a`` (0 a zero
+    tensor like ``b``) or ``b``."""
+    if isinstance(cond, torch.Tensor):
+        return torch.where(cond, a, b)
+    if not cond:
+        return b
+    return torch.zeros_like(b) if isinstance(a, int) and a == 0 else a
 
 
 def shl(x, n):
     """Go ``<< n`` on 32-bit values; n >= 32 yields 0."""
     bad, nc = _bad(n)
     v = (u(x) << nc) & _M32
-    return _like(torch.where(bad, 0, v), x)
+    return _like(_pick(bad, 0, v), x)
 
 
 def ushr(x, n):
     """Go unsigned ``>> n``; n >= 32 yields 0."""
     bad, nc = _bad(n)
-    return _like(torch.where(bad, 0, u(x) >> nc), x)
+    return _like(_pick(bad, 0, u(x) >> nc), x)
 
 
 def sshr(x, n):
     """Go signed arithmetic ``>> n``; n >= 32 yields sign fill."""
     bad, nc = _bad(n)
-    return _like(wrap(_long(x)) >> torch.where(bad, 31, nc), x)
+    return _like(wrap(_long(x)) >> _pick(bad, 31, nc), x)
 
 
 def sext(x, bits):
     """Go ``(x << (32-bits)) >> (32-bits)``; bits > 32 yields 0."""
-    cs = 32 - _long(bits)
-    return _like(torch.where(cs < 0, 0, _long(sshr(shl(_long(x), cs), cs))), x)
+    cs = 32 - (bits.to(torch.int64) if isinstance(bits, torch.Tensor) else bits)
+    return _like(_pick(cs < 0, 0, _long(sshr(shl(_long(x), cs), cs))), x)
 
 
 def sext16(x):

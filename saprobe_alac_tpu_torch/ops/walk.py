@@ -57,17 +57,26 @@ class WalkResult(NamedTuple):
     filled: torch.Tensor  # 1 if an element decoded into the channel
 
 
-def walk_batch(words, size_bits, *, F, C, depth, pb, mb, kb) -> WalkResult:
+def channel_offsets(C: int, device) -> torch.Tensor:
+    """(C,) int32 on ``device``: bitstream channel -> output channel
+    (CHANNEL_LAYOUT_OFFSETS).  A decoder builds it once: building it is a
+    host-to-device copy, which a CUDA graph capture refuses."""
+    if not 1 <= C <= 8:
+        raise ValueError(f"the walk takes C = 1..8, got {C}")
+    return torch.tensor(CHANNEL_LAYOUT_OFFSETS[C - 1], dtype=torch.int32, device=device)
+
+
+def walk_batch(words, size_bits, *, F, C, depth, pb, mb, kb, offsets=None) -> WalkResult:
     """Run phase 1 over a packed (B, W) int32 batch of big-endian words.
 
     The batch's device (that of ``words``) picks the implementation: the
-    packet kernel on a CUDA device, its plain version on the CPU."""
-    if not 1 <= C <= 8:
-        raise ValueError(f"the walk takes C = 1..8, got {C}")
-    i32 = torch.int32
-    offsets = torch.tensor(CHANNEL_LAYOUT_OFFSETS[C - 1], dtype=i32, device=words.device)
+    packet kernel on a CUDA device, its plain version on the CPU.
+    ``offsets``: `channel_offsets(C, words.device)`, built here when not
+    given."""
+    if offsets is None:
+        offsets = channel_offsets(C, words.device)
     rows, err, ns, meta, coefs = dense_packet(
-        words.contiguous(), size_bits.to(i32).contiguous(), offsets,
+        words.contiguous(), size_bits.to(torch.int32).contiguous(), offsets,
         kb=kb, F=F, C=C, depth=depth, pb_cfg=pb, mb_cfg=mb,
     )
     return WalkResult(res=rows, err=err, ns=ns, coefs=coefs, **dict(zip(PACKET_FIELDS, meta)))

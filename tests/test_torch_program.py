@@ -1,0 +1,161 @@
+"""The port's decode programs (ops/program.py): one `DecodeProgram` per
+(rows, width, taps, staging) key, its static inputs filled anew by every
+call.  On the CPU every call runs the decode eagerly on those inputs, so
+these tests reach the fill that a CUDA graph replay reads on the card: calls
+of several sizes on one key, padded and tight (a tight call after a longer
+one leaves stale words in the static buffer), the 9- and 32-tap programs of
+one batch, two calls in flight on one key, and the cache's limit.  Every
+call's bytes equal the JAX package's `JaxBatchDecoder` and the JAX oracle,
+packet by packet (one JAX call on all the packets: each packet decodes on
+its own)."""
+
+import dataclasses
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_config, music_pcm
+
+from saprobe_alac_tpu.codec import decode_packet as oracle
+from saprobe_alac_tpu.encoder import ChannelSpec, EncoderSpec, encode_packets
+from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
+from saprobe_alac_tpu_torch import PacketConfig, TorchBatchDecoder, _build
+from saprobe_alac_tpu_torch.ops import program
+from saprobe_alac_tpu_torch.ops.batch import _program_key, _tight_rows
+from saprobe_alac_tpu_torch.ops.torchint import sext, shl, sshr, ushr
+
+F = 128
+ROWS = 48
+
+
+@pytest.fixture(scope="module")
+def case():
+    """(port config, 48 music packets (the last partial), an order-12
+    packet, {packet: the JAX decoder's bytes})."""
+    cfg = make_config(depth=16, channels=2, frame_length=F)
+    pk = encode_packets(cfg, EncoderSpec(), music_pcm(ROWS * F - 17, 2, 16, seed=5))
+    o12 = encode_packets(cfg, EncoderSpec(channel=ChannelSpec(order=12)),
+                         music_pcm(F, 2, 16, seed=6))[0]
+    everything = pk + [o12]
+    jax_out = JaxBatchDecoder(cfg).decode_packets(everything)
+    want = {}
+    for p, j in zip(everything, jax_out):
+        assert j == oracle(cfg, p)[0]
+        want[p] = j
+    return PacketConfig(**dataclasses.asdict(cfg)), pk, o12, want
+
+
+def _decode(dec, packets, rows=ROWS):
+    return dec.finish_async(dec.decode_async(packets, rows=rows), packets)
+
+
+@pytest.mark.parametrize("tight", [False, True])
+def test_calls_of_several_sizes_share_a_program(case, tight):
+    """Calls of 40, 33, 48 and 1 packets in one batch bucket, then 40 again
+    (tight: after the longer call of 48 on its key, so the static buffer
+    holds that call's words past this call's payload): every call's bytes
+    equal JAX's and the oracle's."""
+    pc, pk, _, want = case
+    dec = TorchBatchDecoder(pc, "cpu", tight=tight)
+    for n in (40, 33, 48, 1, 40):
+        assert _decode(dec, pk[:n]) == [want[p] for p in pk[:n]]
+        assert dec.last_fallbacks == 0
+    if not tight:
+        (prog,) = dec._programs.values()
+        assert prog.key == (ROWS, 128, 9, False, 0) and prog.uses == 5
+        return
+    host = dec._host_stage(pk[:40], ROWS)
+    prog = dec._programs[_program_key(host, 9)]
+    assert prog.uses == 3  # 40, 48, 40
+    flat, *_ = program.payload(host)
+    assert flat.size == sum((len(p) + 3) // 4 for p in pk[:40])  # only the packets' words
+    stale = prog.inputs[0][flat.size:]
+    assert bool((stale != 0).any())  # the call of 48 left its words there
+    # ... and no row reads them: the rows gathered from the static inputs
+    # equal the padded rows of the same call.
+    words, _ = TorchBatchDecoder(pc, "cpu")._stage(pk[:40], ROWS)
+    assert torch.equal(_tight_rows(*prog.inputs, prog.key[1]), words)
+
+
+@pytest.mark.parametrize("tight", [False, True])
+def test_wide_order_runs_the_32_tap_program_of_the_same_rows(case, tight):
+    """A batch with one order-12 packet runs the 9-tap program, then the
+    32-tap program of the same rows and width (finish_async's retry)."""
+    pc, pk, o12, want = case
+    batch = pk[:20] + [o12] + pk[20:30]
+    dec = TorchBatchDecoder(pc, "cpu", tight=tight)
+    assert dec.decode_packets(batch) == [want[p] for p in batch]
+    k9, k32 = dec._programs
+    assert (k9[2], k32[2]) == (9, 32) and k9[:2] == k32[:2] == (32, 128)  # 31 packets
+    assert k9[3:] == k32[3:]
+
+
+@pytest.mark.parametrize("tight", [False, True])
+def test_two_calls_in_flight_on_one_key(case, tight):
+    """Two decode_async calls on one key, both made before either is
+    finished: each handle holds its own outputs."""
+    pc, pk, _, want = case
+    dec = TorchBatchDecoder(pc, "cpu", tight=tight)
+    a, b = pk[:33], pk[10:43]
+    ha = dec.decode_async(a, rows=ROWS)
+    hb = dec.decode_async(b, rows=ROWS)
+    assert len(dec._programs) == 1 and next(iter(dec._programs.values())).uses == 2
+    assert dec.finish_async(hb, b) == [want[p] for p in b]
+    assert dec.finish_async(ha, a) == [want[p] for p in a]
+
+
+def test_cache_keeps_at_most_max_programs(case):
+    """More keys than MAX_PROGRAMS leave MAX_PROGRAMS programs, the least
+    recently used released; an evicted key decodes correctly again."""
+    pc, pk, _, want = case
+    one = [max(pk, key=len)]
+    dec = TorchBatchDecoder(pc, "cpu")
+    rows = [8, 12, 16, 24, 32, 48, 64, 96, 128]
+    assert len(rows) > program.MAX_PROGRAMS
+    first = None
+    for r in rows:
+        assert _decode(dec, one, rows=r) == [want[one[0]]]
+        first = first or dec._programs[next(iter(dec._programs))]
+    assert len(dec._programs) == program.MAX_PROGRAMS
+    assert [k[0] for k in dec._programs] == rows[1:]
+    assert first.inputs is None  # released
+    assert _decode(dec, one, rows=rows[0]) == [want[one[0]]]
+    assert [k[0] for k in dec._programs] == rows[2:] + rows[:1]
+
+
+def test_launches_recorded_while_capturing_stay_on_the_thread():
+    """A capture's launches go to the capturing thread's record, not to
+    the counters; another thread's launches meanwhile count as before."""
+    _build.reset_launch_counts()
+    try:
+        with _build.recording_launches() as rec:
+            _build.count_launch("packet")
+            _build.count_launch("lpc", 2)
+            t = threading.Thread(target=_build.count_launch, args=("raw_read",))
+            t.start()
+            t.join(10)
+            assert not t.is_alive()
+        _build.count_launch("replay")
+        assert rec == {"packet": 1, "lpc": 2}
+        counts = _build.launch_counts()
+        assert (counts["packet"], counts["lpc"], counts["raw_read"], counts["replay"]) == (
+            0, 0, 1, 1)
+    finally:
+        _build.reset_launch_counts()
+
+
+@pytest.mark.parametrize("fn", [shl, ushr, sshr, sext])
+def test_constant_shift_counts_match_tensor_counts(fn):
+    """The epilogue's constant shifts take Python counts, which make no
+    host tensor (a CUDA graph capture refuses the copy of one to the card):
+    each helper gives the same values as with a tensor count."""
+    rng = np.random.default_rng(7)
+    edge = [0, 1, -1, 0x7FFFFFFF, -0x80000000, 0xFFFF, -0x10000]
+    x = torch.from_numpy(np.concatenate([
+        edge, rng.integers(-(1 << 31), 1 << 31, 64)]).astype(np.int64))
+    for n in (-1, 0, 1, 4, 8, 16, 24, 31, 32, 33, 40):
+        got = fn(x, n)
+        want = fn(x, torch.full_like(x, n))
+        assert got.dtype == want.dtype and torch.equal(got, want), n
