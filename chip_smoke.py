@@ -3,6 +3,12 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --corpus-only DIR   # phase 23 alone, DIR's package
+
+``--corpus-only DIR`` runs phase 23 alone on the package in DIR (its
+saprobe_alac_tpu_torch/ and native/, e.g. an earlier commit unpacked with
+``git archive <commit> saprobe_alac_tpu_torch native | tar -x -C DIR``), for
+its memory trajectory beside this tree's.
 
 Phases, one line each (any failure raises and exits non-zero):
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
@@ -81,7 +87,14 @@ Phases, one line each (any failure raises and exits non-zero):
      run, the forward LPC's SM cycles a row and the encode kernel's a
      sample;
      encode_walk alone (the device part of the call) on the call's own
-     arguments, by CUDA events.
+     arguments, by CUDA events; then encode_walk as its process-wide
+     program (ops/program.py; the cache emptied first): the call's first
+     use eager, its second captured, its third one replay that runs no
+     eager encode_walk; a replay's words, bits and ovf equal eager
+     encode_walk's on the program's static inputs, byte for byte; the
+     capture ms, the pool bytes, the kernels and copies one replay
+     enqueues against one eager call (torch.profiler), a replay's time
+     and the call's.
  14. the packet kernel (every element of a packet in one launch) against
      its plain version, a host slot loop over the plain element walk, B=256
      packets of F=512 (phase 16 holds it at F=4096), tolerance 0, every
@@ -97,8 +110,9 @@ Phases, one line each (any failure raises and exits non-zero):
      under torch.profiler (the card's busy time, its top kernels) and one
      with every stage synchronised and timed by the host clock;
  16. at phase 15's shapes, on its batch: the packet kernel against its
-     plain version (five elements a packet: eight passes of 4096 rows of op
-     launches, minutes), every output on every lane; the LPC kernel at
+     plain version run on the host (`on_host`: five elements a packet,
+     eight passes of 4096 rows of op launches, a minute or more), every
+     output on every lane; the LPC kernel at
      L=16,384 lanes and the raw read (L=16,384) against their plain versions,
      tolerance 0; their times by CUDA events beside their bounds, the LPC's
      SM cycles a row;
@@ -132,21 +146,26 @@ Phases, one line each (any failure raises and exits non-zero):
      on files the port's encode_to_m4a writes on the card: (a) 600 s of
      44.1 kHz 16-bit stereo (6,460 packets of F=4096, the last partial) to
      an .m4a; new_decoder(f).read() equal to the source with windows of 64
-     (one packet walk and one LPC launch a window), timed by the host clock
+     (one packet walk and one LPC launch a window), a second
+     new_decoder(f).read() that makes no program, captures nothing and
+     runs nothing eagerly (the process-wide cache), timed by the host clock
      with windows of 64 and of 2048 (median of 3 warm runs, x realtime); the
      time to the first MiB after open; a window of 64 one by one
      (decode_async, the card's tail, finish_async) against one
      decode_packets call on all 6,460 packets; the packet walk and the LPC
-     against their plain versions on the last window of 64 (60 packets, the
-     last partial), tolerance 0; (b) reads of 1 MiB, five
+     against their plain versions, run on the host (`on_host`), on the last
+     window of 64 (60 packets, the last partial), tolerance 0; (b) reads of 1 MiB, five
      seeded seeks and one seek_exact, each tail equal to the source,
      decode_file, and the CLI's WAV (header and data); (c) 12 files, half
      M4A and half CAF (4 x 180 s 44.1 kHz 16-bit stereo, 4 x 120 s 96 kHz
      24-bit stereo and 4 x 60 s 48 kHz 24-bit 7.1, both with
      bytesShifted=1) through iter_decode_corpus (batches of 256, 2 in
      flight), each file equal to its source as it comes, one packet launch
-     a batch, then timed (median of 3 runs, x realtime); the raw read
-     against its plain version on the service's batch of 256 that spans
+     a batch, then timed (median of 3 runs, x realtime; the later passes
+     make no program and run nothing eagerly, the second capturing only
+     the keys the first ran once); the raw read
+     against its plain version (on the host, as (a)'s holds) on the
+     service's batch of 256 that spans
      the first two files of the hi-res group and of the 7.1 group,
      tolerance 0; (d) alac-encode
      on a WAV of (a)'s first 60 s, decoded back on the card equal to it.
@@ -166,10 +185,15 @@ Phases, one line each (any failure raises and exits non-zero):
      (c) utils.profiling.profile_batch_decode on phase 15's batch, padded
      and tight, its bytes equal to the source (phases 12 and 15 profile
      their call, and phases 15 and 20 time their stages, with the same
-     module); (d) phase 4's batch by decode_async, then pcm_to_float and
-     log_spectrogram on the card, only the features downloaded, against
-     float64 numpy from the source PCM (tolerance 1e-3), with its time
-     and x realtime; (e) 16 packets of phase 4 and 8 of phase 15 through
+     module); (d) phase 4's batch by decode_async, then pcm_to_float,
+     log_spectrogram and frame_energy on the card, only the features
+     downloaded, against float64 numpy from the source PCM (tolerance
+     1e-3), with its time and x realtime; frame_energy and log_spectrogram
+     run as programs, a warm call one replay of each, equal to the eager
+     formulas; each of the three alone, warm, timed as a program against
+     its eager formula (pcm_to_float, which runs directly, as a program
+     made there); (e) 16
+     packets of phase 4 and 8 of phase 15 through
      PacketDecoder(cfg, "scalar"), and encode_packets(..., backend=
      "python") on 16 packets of phase 4's PCM decoded on the card: bytes
      equal to the source.
@@ -190,9 +214,22 @@ Phases, one line each (any failure raises and exits non-zero):
      eager against replay (median and p90 of 30 runs in turns); (e) two
      threads, each on its own CUDA stream, sharing one decoder on phase 4's
      batch and random slices of it: every slice equal to the source.
+ 23. a corpus of many configs (`corpus_configs_phase`): 16 files, channel
+     counts 1, 2, 6 and 8 at 16 and 24 bits (bytesShifted=1), each at 44.1
+     and 48 kHz, 612 packets of F=4096 (two full batches of 256 and a
+     partial one) written by the port's encode_to_m4a on the card, M4A and
+     CAF in turn, through iter_decode_corpus: each file equal to its
+     source, no host fallback; after each file the card's reserved bytes
+     and the bytes the program cache keeps (static inputs and graph pools),
+     which stay within the budget plus the largest single program's; then
+     the budget lowered to 1 GiB:
+     programs evicted on the card, the bytes still equal, and the reserved
+     bytes after empty_cache falling with what the cache holds (the
+     evicted pools returned).
 The line before the last is the kernels' JSON record (each kernel's
-launches on its path, on phase 20's paths as ``launches_phase20_*`` and on
-phase 21's as ``launches_phase21_*``,
+launches on its path, on phase 20's paths as ``launches_phase20_*``, on
+phase 21's as ``launches_phase21_*`` and on phase 23's corpus as
+``launches_phase23_corpus``,
 max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms); the last line is {"ok": true, "device": {...}}.  Neither JAX
 nor the JAX package saprobe_alac_tpu is importable here: both are blocked
 before any import.
@@ -305,6 +342,25 @@ def timed(fn):
     e1.record()
     e1.synchronize()
     return out, e0.elapsed_time(e1)
+
+
+def on_host(fn, *args, **kw):
+    """(``fn`` on CPU copies of the tensors among its arguments, its outputs
+    moved back to their device, ms by the host clock).  A plain version
+    walks F rows of small op launches, which take a third of the time on the
+    host that they take on the card, and it gives the same integers on
+    either."""
+    dev = next(a.device for a in args if torch.is_tensor(a))
+
+    def host(a):
+        return a.cpu() if torch.is_tensor(a) else a
+
+    t0 = time.perf_counter()
+    out = fn(*map(host, args), **{k: host(v) for k, v in kw.items()})
+    ms = (time.perf_counter() - t0) * 1e3
+    if torch.is_tensor(out):
+        return out.to(dev), ms
+    return tuple(o.to(dev) for o in out), ms
 
 
 def cuda_times(fn, runs=RUNS, reps=1):
@@ -505,8 +561,9 @@ def hold_batch(c, packets, dev, kernels):
     """The decode path's kernels named in ``kernels`` ("packet", "lpc",
     "raw_read") against their plain versions, tolerance 0, on the inputs
     one `decode_async` call on ``packets`` builds (its staged words, its
-    packet walk, the LPC lanes at 9 taps, the shift region's reads).
-    Raises on any difference; returns {name: plain ms}."""
+    packet walk, the LPC lanes at 9 taps, the shift region's reads), the
+    plain versions on the host (`on_host`).  Raises on any difference;
+    returns {name: plain ms}."""
     from saprobe_alac_tpu_torch.ops import lpc_kernel, walk_kernel
     from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
     from saprobe_alac_tpu_torch.ops.epilogue import shift_reads
@@ -519,18 +576,17 @@ def hold_batch(c, packets, dev, kernels):
     err, plain = {}, {}
     if "packet" in kernels:
         args, kw = packet_args(c, words, sizes)
-        want, plain["packet"] = timed(lambda: walk_kernel.dense_packet_reference(*args, **kw))
+        want, plain["packet"] = on_host(walk_kernel.dense_packet_reference, *args, **kw)
         err["packet"] = packet_diff(walk_kernel.dense_packet(*args, **kw), want)
     if "lpc" in kernels:
         lin = lanes(w, Cc)
-        want, plain["lpc"] = timed(lambda: lpc_kernel.lpc_fir_reference(*lin, F=Fc, taps=9))
+        want, plain["lpc"] = on_host(lpc_kernel.lpc_fir_reference, *lin, F=Fc, taps=9)
         err["lpc"] = lpc_diff(lpc_kernel.lpc_fir(*lin, F=Fc, taps=9), want, w.ns.repeat(Cc))
     if "raw_read" in kernels:
         r = shift_reads(w.shift_base, w.bs, w.role, w.ns)
         if not bool((r[3] != 0).any()):
             raise AssertionError(f"{len(packets)} packets at {c.bit_depth} bits: no raw read")
-        want, plain["raw_read"] = timed(lambda: raw_read_reference(words, *r[:5], F=Fc,
-                                                                   row=r[5]))
+        want, plain["raw_read"] = on_host(raw_read_reference, words, *r[:5], F=Fc, row=r[5])
         err["raw_read"] = amax((raw_read(words, *r[:5], F=Fc, row=r[5]) - want).abs())
     if any(err.values()):
         raise AssertionError(f"{len(packets)} packets of {Cc} channels at {c.bit_depth} bits: "
@@ -586,6 +642,7 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
 
     from saprobe_alac_tpu_torch import cli as port_cli
     from saprobe_alac_tpu_torch.encoder import EncoderSpec, encode_to_m4a
+    from saprobe_alac_tpu_torch.ops import program
     from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
     from saprobe_alac_tpu_torch.utils.profiling import PhaseTimer, decode_stages
     from saprobe_alac_tpu_torch.utils.wav import wav_header, write_wav
@@ -612,7 +669,16 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
             raise AssertionError(f"phase 20 {where}: no launch of {missing} ({counts})")
         return {k: counts[k] for k in (*names, "replay")}
 
+    def program_runs():
+        """What the decode programs did since the last reset: programs
+        made, eager runs, captures, replays, evictions."""
+        c = program.counts(dev)
+        return {k: c[k] for k in ("programs", "eager", "captures", "replays", "evictions")}
+
     res, launches = {}, {}
+    # The phase, and its corpus below, start with an empty program cache:
+    # the earlier phases' programs would pass its budget on the way.
+    program.clear()
     TorchBatchDecoder.finish_async = counted_finish
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     try:
@@ -638,14 +704,26 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
                 return port.new_decoder(fh, backend=backend, batch_size=batch_size).read()
 
         port.reset_launch_counts()
+        program.reset_counts()
         if read_all(64) != src:
             raise AssertionError("phase 20 track: the facade's bytes differ from the source")
         launches["track"] = launched("track", ("packet", "lpc"), port.launch_counts())
+        res["programs_first_decoder"] = program_runs()
         no_fallbacks("track")
         windows = -(-n_pk // 64)
         if launches["track"]["packet"] != windows:
             raise AssertionError(f"phase 20 track: {launches['track']} launches for "
                                  f"{windows} windows")
+        # A second decoder on the track finds every program its windows need
+        # in the process-wide cache: it makes none, captures nothing and
+        # runs nothing eagerly.
+        program.reset_counts()
+        if read_all(64) != src:
+            raise AssertionError("phase 20 track: the second decoder's bytes differ")
+        second = res["programs_second_decoder"] = program_runs()
+        if (second["programs"], second["captures"], second["eager"]) != (0, 0, 0):
+            raise AssertionError(f"phase 20 track: the second decoder's programs {second}, "
+                                 "want no program made, no capture and no eager run")
         audio_a = n_a / rate
         for bsz in (64, 2048):
             if bsz != 64 and read_all(bsz) != src:
@@ -721,10 +799,14 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
             f"packets of F={frame}, the last partial, {len(src)} bytes of PCM) encoded on the "
             f"card by encode_to_m4a in {res['encode_s']:.3f} s (launches "
             f"{launches['encode_to_m4a']}); new_decoder(f).read() == source, host fallbacks 0, "
-            f"launches {launches['track']} ({windows} windows of 64); read s (median of {runs} "
+            f"launches {launches['track']} ({windows} windows of 64), programs "
+            f"{res['programs_first_decoder']}; a second new_decoder(f).read() == source, "
+            f"programs {res['programs_second_decoder']}; read s (median of {runs} "
             f"warm runs): windows of 64 {res['read_s_batch64']} = "
             f"{res['x_realtime_batch64']:.1f}x realtime, windows of 2048 "
-            f"{res['read_s_batch2048']} = {res['x_realtime_batch2048']:.1f}x; first MiB after "
+            f"{res['read_s_batch2048']} = {res['x_realtime_batch2048']:.1f}x (earlier runs on "
+            f"an H100 80GB HBM3 at 700 W: 0.481 s with programs kept per decoder, 0.404 s "
+            f"before decode programs); first MiB after "
             f"open, ms {res['first_mib_ms']}; a window of 64 one by one, ms: decode_async "
             f"{res['window64_ms']['decode_async']}, the card's tail after it "
             f"{res['window64_ms']['card_tail']}, finish_async {res['window64_ms']['finish_async']}"
@@ -732,7 +814,7 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
             f"{n_pk} packets, s {res['one_call_s']}; stage by stage (synchronised, ms), summed "
             f"over the windows of 64: { {k: round(v, 1) for k, v in win_st.items()} }, the one "
             f"call: { {k: round(v, 1) for k, v in one_st.items()} }; the last window's "
-            f"packet walk and LPC vs plain: max_abs_err 0 (plain ms "
+            f"packet walk and LPC vs plain: max_abs_err 0 (plain on the host, ms "
             f"{ {k: round(v, 1) for k, v in res['plain_ms_window64'].items()} })"
         )
 
@@ -795,12 +877,19 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
         pcm_c = sum(n * ch * (2 if dp == 16 else 3) for n, ch, _, dp, _ in specs)
         seen = set()
         port.reset_launch_counts()
+        program.clear()
+        program.reset_counts()
+        uses = {id(p): p.uses for p in program.programs(dev)}
         for f in port.iter_decode_corpus(paths, backend=backend):
             n, ch, seed, depth, _ = specs[f.index]
             if f.index in seen or f.pcm != pcm_bytes(music_pcm(n, ch, seed, depth=depth, dev=dev), depth):
                 raise AssertionError(f"phase 20 (c): file {f.index} differs from its source")
             seen.add(f.index)
         launches["corpus"] = launched("corpus", ("packet", "lpc", "raw_read"), port.launch_counts())
+        res["programs_corpus_pass1"] = program_runs()
+        # The first pass's keys that ran once: a key's second use captures.
+        once = sum(1 for p in program.programs(dev)
+                   if p.kind == "decode" and p.graph is None and p.uses > uses.get(id(p), 0))
         if seen != set(range(len(paths))):
             raise AssertionError(f"phase 20 (c): files {sorted(seen)} came back")
         no_fallbacks("(c)")
@@ -828,14 +917,24 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
         batches = sum(-(-p // 256) for p in per_group.values())
         if launches["corpus"]["packet"] != batches:
             raise AssertionError(f"phase 20 (c): {launches['corpus']} launches, {batches} batches")
-        ts = []
+        ts, passes = [], []
         for _ in range(runs):
+            program.reset_counts()
             t0 = time.perf_counter()
             got = sum(len(f.pcm) for f in port.iter_decode_corpus(paths, backend=backend))
             ts.append(time.perf_counter() - t0)
+            passes.append(program_runs())
             if got != pcm_c:
                 raise AssertionError(f"phase 20 (c): {got} bytes of PCM, not {pcm_c}")
         no_fallbacks("(c), timed")
+        # Later passes run the first pass's programs: no program made, no
+        # eager run; the second pass captures only the keys the first ran
+        # once, and a third pass captures nothing.
+        want = [(0, once, 0)] + [(0, 0, 0)] * (runs - 1)
+        if [(c["programs"] + c["eager"], c["captures"], c["evictions"]) for c in passes] != want:
+            raise AssertionError(f"phase 20 (c): the passes' programs {passes}; want (made + "
+                                 f"eager, captures, evictions) {want}")
+        res["programs_corpus_later_passes"] = passes
         res["corpus_s"] = summary(ts)
         res["corpus_x_realtime"] = audio_c / statistics.median(ts)
         res["corpus_batches"] = batches
@@ -843,10 +942,12 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
             f"phase 20 {tag} (c) iter_decode_corpus over {len(paths)} files (half M4A, half CAF; "
             f"{audio_c:.1f} s of audio, {pcm_c} bytes of PCM; encoded on the card in "
             f"{res['corpus_encode_s']:.3f} s): each file == its source as it came, host "
-            f"fallbacks 0, {batches} batches of up to 256, launches {launches['corpus']}; s "
+            f"fallbacks 0, {batches} batches of up to 256, launches {launches['corpus']}, "
+            f"programs {res['programs_corpus_pass1']} ({once} keys ran once); the later passes' "
+            f"programs {passes}; s "
             f"(median of {runs} runs) {res['corpus_s']} = {res['corpus_x_realtime']:.1f}x "
             f"realtime; raw read vs plain on a cross-file batch of 256, hi-res and 7.1: "
-            f"max_abs_err 0 (plain ms {res['plain_ms_raw_read_corpus']})"
+            f"max_abs_err 0 (plain on the host, ms {res['plain_ms_raw_read_corpus']})"
         )
 
         # ---- (d) alac-encode on a WAV of the track's first 60 s ----
@@ -883,9 +984,9 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
     fallback on clean music and any path kernel not launched raises.
     Returns the phase's numbers and its launches on each path."""
     from saprobe_alac_tpu_torch.encoder import EncoderSpec, encode_packets
-    from saprobe_alac_tpu_torch.ops.audio import log_spectrogram, pcm_to_float
-    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
-    from saprobe_alac_tpu_torch.ops.program import payload
+    from saprobe_alac_tpu_torch.ops import audio, program
+    from saprobe_alac_tpu_torch.ops.audio import frame_energy, log_spectrogram, pcm_to_float
+    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder, payload
     from saprobe_alac_tpu_torch.parallel import ShardedBatchDecoder
     from saprobe_alac_tpu_torch.utils.profiling import profile_batch_decode
 
@@ -1000,36 +1101,100 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
     dec = TorchBatchDecoder(c4, dev)
     n_pk = len(pk4)
 
+    frame, hop, n_bins = 512, 256, 128
+
+    def samples_of(packed):
+        return packed[:n_pk].contiguous().view(torch.int16).reshape(n_pk, F, 2)
+
     def features():
         packed, err, _, wide = dec.decode_async(pk4)
-        samples = packed[:n_pk].contiguous().view(torch.int16).reshape(n_pk, F, 2)
-        feats = log_spectrogram(pcm_to_float(samples, 16).mean(dim=-1))
-        return feats.cpu(), err[:n_pk].cpu(), wide[:n_pk].cpu()
+        mono = pcm_to_float(samples_of(packed), 16).mean(dim=-1)
+        feats = log_spectrogram(mono, frame, hop, n_bins)
+        energy = frame_energy(mono, frame, hop)
+        return feats.cpu(), energy.cpu(), err[:n_pk].cpu(), wide[:n_pk].cpu()
 
     port.reset_launch_counts()
-    feats, err, wide = features()
+    feats, energy, err, wide = features()
     launched("(d) features", "features", c4)
     if bool(err.any()) or bool(wide.any()):
         raise AssertionError("phase 21 (d): a packet of clean music needs the host or 32 taps")
     src = np.zeros((n_pk * F, 2))
     src[: len(pcm4)] = pcm4
     mono = (src / 32768.0).mean(axis=-1).reshape(n_pk, F)
-    frame, hop, n_bins = 512, 256, 128
     idx = np.arange(1 + (F - frame) // hop)[:, None] * hop + np.arange(frame)
     win = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(frame) / frame)
     want = np.log1p(np.abs(np.fft.rfft(mono[:, idx] * win, axis=-1))[..., :n_bins])
+    want_e = np.sqrt((mono[:, idx] ** 2).mean(axis=-1) + 1e-12)
     f_err = float(np.abs(feats.double().numpy() - want).max())
-    if f_err > 1e-3:
-        raise AssertionError(f"phase 21 (d): features differ from float64 numpy by {f_err}")
+    e_err = float(np.abs(energy.double().numpy() - want_e).max())
+    if max(f_err, e_err) > 1e-3:
+        raise AssertionError(f"phase 21 (d): features differ from float64 numpy by {f_err} "
+                             f"(spectrogram), {e_err} (frame energy)")
     t = host_times(features, runs=runs)
+    # The framed features run as programs: after the timed calls each has
+    # captured, so one more is one replay of each, equal to the eager
+    # formulas on the same samples (pcm_to_float runs directly).
+    samples = samples_of(dec.decode_async(pk4)[0])
+    program.reset_counts()
+    f_mono = pcm_to_float(samples, 16)
+    got = (log_spectrogram(f_mono.mean(dim=-1), frame, hop, n_bins),
+           frame_energy(f_mono.mean(dim=-1), frame, hop))
+    c = program.counts(dev)
+    ran = {k: c[k] for k in ("programs", "eager", "captures", "replays")}
+    if ran != {"programs": 0, "eager": 0, "captures": 0, "replays": 2}:
+        raise AssertionError(f"phase 21 (d): the features' programs ran {ran}, want 2 replays")
+    e_mono = audio._to_float(samples, 16).mean(dim=-1)
+    eager = (audio._log_spec(e_mono, audio._frame_index(F, frame, hop, dev),
+                             audio._hann(frame, torch.float32, dev), n_bins),
+             audio._energy(e_mono, audio._frame_index(F, frame, hop, dev)))
+    if not all(torch.equal(a, b) for a, b in zip(got, eager)):
+        raise AssertionError("phase 21 (d): the features' replays differ from the eager formulas")
+    progs = {p.kind: p for p in program.programs(dev)
+             if p.kind in ("log_spectrogram", "frame_energy")}
+    # Each feature alone on this batch, warm, through a program (a fill of
+    # its static input, one replay, a clone of its output; pcm_to_float's
+    # made here, as the function runs directly) against its eager formula
+    # (the index and window built anew, as before the programs): ms by CUDA
+    # events, 10 calls back to back a sample, in turns.
+    x_mono = f_mono.mean(dim=-1)
+    variants = {
+        "pcm_to_float": (
+            lambda: audio._run("pcm_to_float", (16,), samples, lambda s: audio._to_float(s, 16)),
+            lambda: audio._to_float(samples, 16)),
+        "frame_energy": (
+            lambda: frame_energy(x_mono, frame, hop),
+            lambda: audio._energy(x_mono, audio._frame_index(F, frame, hop, dev))),
+        "log_spectrogram": (
+            lambda: log_spectrogram(x_mono, frame, hop, n_bins),
+            lambda: audio._log_spec(x_mono, audio._frame_index(F, frame, hop, dev),
+                                    audio._hann(frame, torch.float32, dev), n_bins)),
+    }
+    alone = {}
+    for name, (as_program, as_eager) in variants.items():
+        if not torch.equal(as_program(), as_eager()):
+            raise AssertionError(f"phase 21 (d): {name}'s program differs from its formula")
+        tp, te = [], []
+        for first in (True, False):
+            for fn, out in ((as_program, tp), (as_eager, te))[:: 1 if first else -1]:
+                out += cuda_times(fn, reps=10)
+        alone[name] = {"program_ms": summary(tp), "eager_ms": summary(te)}
     audio_s = len(pcm4) / c4.sample_rate
-    res["features"] = {"max_abs_err": f_err, "s": summary(t), "feature_bytes": feats.numel() * 4,
-                       "pcm_bytes": n_pk * F * 4, "x_realtime": audio_s / statistics.median(t)}
-    print(f"phase 21 {tag} (d) decode_async + pcm_to_float + log_spectrogram on the card, "
-          f"B={n_pk}: features {tuple(feats.shape)} max_abs_err {f_err:.3g} against float64 numpy "
-          f"(tolerance 1e-3); decode+features median {statistics.median(t) * 1e3:.1f} ms, x "
-          f"realtime {res['features']['x_realtime']:.1f}; {feats.numel() * 4} feature bytes "
-          f"back for {n_pk * F * 4} bytes of PCM")
+    res["features"] = {"max_abs_err": f_err, "max_abs_err_energy": e_err, "s": summary(t),
+                       "feature_bytes": feats.numel() * 4, "pcm_bytes": n_pk * F * 4,
+                       "x_realtime": audio_s / statistics.median(t), "alone": alone,
+                       "programs": {k: {"capture_ms": p.capture_ms, "pool_bytes": p.pool_bytes,
+                                        "uses": p.uses} for k, p in progs.items()}}
+    print(f"phase 21 {tag} (d) decode_async + pcm_to_float + log_spectrogram and frame_energy "
+          f"on the card, B={n_pk}: features {tuple(feats.shape)}, {tuple(energy.shape)} "
+          f"max_abs_err {f_err:.3g}, {e_err:.3g} against float64 numpy (tolerance 1e-3); each "
+          f"framed feature a program, a warm call one replay of each (2), == the eager "
+          f"formulas; "
+          f"{res['features']['programs']}; each alone, warm, program against eager formula, "
+          f"median ms: "
+          f"{ {k: (v['program_ms']['median'], v['eager_ms']['median']) for k, v in alone.items()} }"
+          f"; decode+features median "
+          f"{statistics.median(t) * 1e3:.1f} ms, x realtime {res['features']['x_realtime']:.1f}; "
+          f"{feats.numel() * 4} feature bytes back for {n_pk * F * 4} bytes of PCM")
 
     # ---- (e) the host backends: the scalar oracle and the Python encoder ----
     t0 = time.perf_counter()
@@ -1117,6 +1282,51 @@ def enqueue_times(fns, runs):
             for label, (h, t) in ts.items()}
 
 
+def encode_program_check(port, w_args, w_kw, dev, call):
+    """Phase 13: `encode_walk` as its process-wide program (ops/program.py).
+    ``w_args``, ``w_kw``: what one `encode_packets_device` call handed
+    `encode_walk`; ``call()`` makes that call.  With the cache emptied,
+    three calls: the first runs eagerly, the second captures, the third is
+    one replay that runs no eager `encode_walk` and counts its capture's
+    launches once.  Then a replay's words, bits and ovf against eager
+    `encode_walk` on the program's static inputs, byte for byte, and what
+    one replay and one eager call enqueue.  Raises on any difference;
+    returns (its numbers, the program's graph)."""
+    from saprobe_alac_tpu_torch.ops import encode_device, program
+
+    program.clear()
+    steps = []
+    for _ in range(3):
+        program.reset_counts()
+        port.reset_launch_counts()
+        call()
+        c = program.counts(dev)
+        steps.append(({k: c[k] for k in ("programs", "eager", "captures", "replays")},
+                      {k: n for k, n in port.launch_counts().items() if n}))
+    (prog,) = [p for p in program.programs(dev) if p.kind == "encode_walk"]
+    want = [{"programs": 1, "eager": 1, "captures": 0, "replays": 0},
+            {"programs": 0, "eager": 0, "captures": 1, "replays": 1},
+            {"programs": 0, "eager": 0, "captures": 0, "replays": 1}]
+    if [c for c, _ in steps] != want or steps[2][1] != dict(prog.launches, replay=1):
+        raise AssertionError(f"phase 13 encode program: calls {steps}, want {want} and the "
+                             f"third call's launches {dict(prog.launches, replay=1)}")
+    sources = tuple(a.cpu().numpy() for a in w_args)
+    got = encode_device.encode_walk_program(sources, dev, **w_kw)
+    eager = encode_device.encode_walk(*prog.inputs, **w_kw)
+    for name, a, b in zip(("words", "bits", "ovf"), got, eager):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"phase 13 encode program: the replay's {name} differs from "
+                                 "eager encode_walk's")
+    seen = enqueued({
+        "replay": lambda: encode_device.encode_walk_program(sources, dev, **w_kw),
+        "eager": lambda: encode_device.encode_walk(*prog.inputs, **w_kw),
+    })
+    return {"key": [str(prog.device), prog.kind, repr(prog.statics), list(prog.shape)],
+            "capture_ms": prog.capture_ms, "pool_bytes": prog.pool_bytes,
+            "launches": prog.launches, "third_call_launches": steps[2][1],
+            "enqueued": seen}, prog.graph
+
+
 def programs_phase(port, tag, dev, batches, ragged, runs=30):
     """Phase 22: the decode programs (ops/program.py) on the card.
     ``batches``: {label: (config, packets, source PCM)} for phase 4's,
@@ -1135,10 +1345,20 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
     latency, eager against replay.  (e) Two threads, each on its own
     stream, share one decoder on phase 4's batch.  Raises on any
     difference.  Returns the phase's numbers."""
+    from saprobe_alac_tpu_torch.ops import program
     from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder, _program_key
     from saprobe_alac_tpu_torch.ops.walk import ERR_NONE
 
     res = {"shapes": {}}
+    # Every key starts here: a key's first use in the process runs eagerly.
+    program.clear()
+
+    def program_of(dec, pk, taps=9):
+        """The process-wide program that ``dec`` runs ``pk`` through."""
+        shape = _program_key(dec._host_stage(pk), taps)
+        (prog,) = [p for p in program.programs(dev)
+                   if (p.kind, p.statics, p.shape) == ("decode", dec.statics, shape)]
+        return prog
 
     def outcome(fn):
         try:
@@ -1149,9 +1369,8 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
     def through_programs(label, dec, pk, taps=9):
         """Three decode_async calls on one key: eager, capture, replay.
         Returns (program, the replay's handle, its eager twin)."""
-        key = _program_key(dec._host_stage(pk), taps)
         dec.decode_async(pk, taps=taps)
-        prog = dec._programs[key]
+        prog = program_of(dec, pk, taps)
         if prog.graph is not None or prog.uses != 1:
             raise AssertionError(f"phase 22 (a) {label}: the first use was not eager")
         dec.decode_async(pk, taps=taps)
@@ -1177,7 +1396,7 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
             if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
                 raise AssertionError(f"phase 22 (a) {label}: the replay's {name} differs from "
                                      "the eager run's")
-        res["shapes"][label] = {"key": list(prog.key), "capture_ms": prog.capture_ms,
+        res["shapes"][label] = {"key": list(prog.shape), "capture_ms": prog.capture_ms,
                                 "pool_bytes": prog.pool_bytes, "launches": prog.launches}
         return prog, handle, eager
 
@@ -1222,7 +1441,7 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
     # ---- (b) each shape: capture, pool, kernels a replay against an eager call ----
     fns = {}
     for name, (dec, prog, pk) in progs.items():
-        taps = prog.key[2]
+        taps = prog.shape[2]
         fns[f"{name} replay"] = lambda dec=dec, pk=pk, taps=taps: dec.decode_async(pk, taps=taps)
         fns[f"{name} eager"] = lambda prog=prog: prog.core(*prog.inputs)
     seen = enqueued(fns)
@@ -1235,10 +1454,7 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
           "eager _decode_core call (torch.profiler; None: no device event seen): " + "; ".join(
               f"{name}: capture {s['capture_ms']:.1f} ms, pool {s['pool_bytes']}, replay "
               f"{s['replay']}, eager {s['eager']}" for name, s in res["shapes"].items()))
-    for dec, _, _ in progs.values():
-        for p in dec._programs.values():
-            p.release()
-        dec._programs.clear()
+    program.clear()
     del progs, fns
 
     # ---- (c) decode_async on the host and the card's tail: eager against replay ----
@@ -1246,7 +1462,7 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
     for label, pk in (("window64", pk4[:64]), ("B2048", pk4)):
         dec = TorchBatchDecoder(c4, dev)
         dec.decode_async(pk)
-        (prog,) = dec._programs.values()
+        prog = program_of(dec, pk)
         res[f"enqueue_{label}"] = enqueue_times({
             "eager": lambda dec=dec, pk=pk, prog=prog: prog.core(*dec._stage(pk)),
             "replay": lambda dec=dec, pk=pk: dec.decode_async(pk),
@@ -1259,7 +1475,7 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
     pk32 = pk4[:32]
     dec = TorchBatchDecoder(c4, dev)
     check_decode(dec.decode_packets(pk32), pcm4[: 32 * F], 16)
-    (prog,) = dec._programs.values()
+    prog = program_of(dec, pk32)
     ways = {"eager": lambda: dec.finish_async(prog.core(*dec._stage(pk32)), pk32),
             "replay": lambda: dec.decode_packets(pk32)}
     for fn in ways.values():
@@ -1301,14 +1517,190 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
     if bad or shared.last_fallbacks:
         raise AssertionError(f"phase 22 (e): packets {bad[:8]} differ from the source on two "
                              f"streams ({shared.last_fallbacks} host fallbacks)")
+    mine = [p for p in program.programs(dev) if (p.kind, p.statics) == ("decode", shared.statics)]
     res["two_streams"] = {"packets": sum(n for _, n in runs_e),
-                          "programs": [list(k) for k in shared._programs],
-                          "uses": [p.uses for p in shared._programs.values()]}
+                          "programs": [list(p.shape) for p in mine],
+                          "uses": [p.uses for p in mine]}
     print(f"phase 22 {tag} (e) two threads on two streams, one decoder, phase 4's batch and "
           f"random slices ({res['two_streams']['packets']} packets): every slice == source, host "
           f"fallbacks 0; programs {res['two_streams']['programs']} used "
           f"{res['two_streams']['uses']} times")
     return res
+
+
+#: Phase 23's corpus: one file a config, (channels, depth, sample rate):
+#: channel counts 1, 2, 6 and 8 at 16 and 24 bits (bytesShifted=1), each at
+#: two sample rates (configs that differ only in rate share programs).
+CONFIGS23 = [(ch, depth, rate) for ch in (1, 2, 6, 8) for depth in (16, 24)
+             for rate in (44100, 48000)]
+#: Phase 23's packets a file: two full batches of the service's 256 and a
+#: partial one, so each config has a full key (used twice a file) and a
+#: partial one.
+PACKETS23 = 2 * 256 + 100
+#: Phase 23's lowered budget (bytes) for its eviction sub-step.
+LOW_BUDGET23 = 1 << 30
+
+
+def corpus_configs_phase(port, tag, dev, frame=F, packets=PACKETS23, low_budget=LOW_BUDGET23):
+    """Phase 23: a corpus of many configs through the service and the
+    process-wide program cache.  One file a config of `CONFIGS23`, written
+    by the port's encoder on ``dev``, ``packets`` packets of ``frame``
+    samples each (the last partial), M4A and CAF in turn, decoded through
+    iter_decode_corpus: each file equal to its source, no host fallback.
+    After each file: torch.cuda.memory_reserved and the resident pool
+    bytes, which must stay within the budget plus the largest single pool.
+    Then a pass with the budget set to ``low_budget``: programs are evicted,
+    their memory returns after empty_cache, and the bytes stay equal.
+    Returns (the phase's numbers, its launches)."""
+    import gc
+    import tempfile
+
+    from saprobe_alac_tpu_torch.encoder import EncoderSpec, encode_to_m4a
+    from saprobe_alac_tpu_torch.ops import program
+    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
+
+    cuda = dev.type == "cuda"
+
+    def reserved():
+        return torch.cuda.memory_reserved(dev) if cuda else 0
+
+    def resident():
+        """Bytes the cached programs keep on the device: inputs and pools."""
+        return program.counts(dev)["resident_bytes"]
+
+    fallbacks = [0]
+    plain_finish = TorchBatchDecoder.finish_async
+
+    def counted_finish(self, handle, pk):
+        out = plain_finish(self, handle, pk)
+        fallbacks[0] += self.last_fallbacks
+        return out
+
+    res = {"files": []}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke23_")
+    TorchBatchDecoder.finish_async = counted_finish
+    try:
+        d = Path(tmp.name)
+        paths, sources = [], []
+        t0 = time.perf_counter()
+        for i, (ch, depth, rate) in enumerate(CONFIGS23):
+            n = packets * frame - frame // 3
+            pcm = music_pcm(n, ch, SEED + 230 + i, depth=depth, dev=dev)
+            paths.append(d / f"k{i}.{'caf' if i % 2 else 'm4a'}")
+            paths[-1].write_bytes(encode_to_m4a(
+                port.PCMFormat(rate, depth, ch), pcm, frame_length=frame,
+                spec=EncoderSpec(bytes_shifted=int(depth == 24)),
+                container=paths[-1].suffix[1:], backend=dev.type))
+            sources.append(pcm_bytes(pcm, depth))
+        del pcm
+        res["encode_s"] = time.perf_counter() - t0
+
+        def decode_pass(label, limit):
+            """One pass over the corpus: bytes against the sources, the
+            memory after each file, the bound at each file.  Returns the
+            files' memory trajectory and the largest program's bytes."""
+            seen, steps, largest = set(), [], 0
+            for f in port.iter_decode_corpus(paths, backend=dev.type):
+                if f.index in seen or f.pcm != sources[f.index]:
+                    raise AssertionError(f"phase 23 {label}: file {f.index} differs from its "
+                                         "source")
+                seen.add(f.index)
+                largest = max([largest, *(p.resident_bytes for p in program.programs(dev))])
+                r = resident()
+                steps.append({"file": f.index, "reserved": reserved(), "resident_bytes": r})
+                if r > limit + largest:
+                    raise AssertionError(f"phase 23 {label}: resident {r} bytes past the budget "
+                                         f"{limit} plus the largest program {largest}")
+            if seen != set(range(len(paths))):
+                raise AssertionError(f"phase 23 {label}: files {sorted(seen)} came back")
+            if fallbacks[0]:
+                raise AssertionError(f"phase 23 {label}: {fallbacks[0]} packets decoded on the "
+                                     "host")
+            return steps, largest
+
+        # ---- the corpus at the default budget ----
+        program.clear()
+        program.reset_counts()
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        res["reserved_before"] = reserved()
+        limit = program.budget(dev)
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        res["files"], res["largest_program"] = decode_pass("default budget", limit)
+        res["decode_s"] = time.perf_counter() - t0
+        counts = port.launch_counts()
+        launches = {k: counts[k] for k in ("packet", "lpc", "raw_read", "replay")}
+        missing = [k for k in ("packet", "lpc", "raw_read") if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"phase 23: no launch of {missing} ({counts})")
+        res["budget"] = limit
+        c = program.counts(dev)
+        res["programs"] = {k: c[k] for k in ("programs", "eager", "captures", "replays",
+                                             "evictions", "cached", "resident_bytes")}
+        res["decode_statics"] = len({p.statics for p in program.programs(dev)
+                                     if p.kind == "decode"})
+        print(f"phase 23 {tag} (a) {len(paths)} files (channels 1, 2, 6, 8 at 16 and 24 bits, "
+              f"each at 44.1 and 48 kHz; {packets} packets of F={frame} each; encoded on the "
+              f"card in {res['encode_s']:.3f} s) through iter_decode_corpus in "
+              f"{res['decode_s']:.3f} s: each file == its source, host fallbacks 0, launches "
+              f"{launches}; budget {limit}; programs {res['programs']}; decode statics "
+              f"{res['decode_statics']}; memory after each file (reserved, the cache's resident "
+              f"bytes): {[(s['reserved'], s['resident_bytes']) for s in res['files']]}; the "
+              f"largest program {res['largest_program']}")
+
+        # ---- (b) a lowered budget: eviction on the card ----
+        evicted = [0]
+        plain_release = program.Program.release
+
+        def counted_release(self):
+            evicted[0] += self.resident_bytes
+            plain_release(self)
+
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        r0, held0 = reserved(), resident()
+        program.reset_counts()
+        program.Program.release = counted_release
+        program.BUDGET = low_budget
+        try:
+            res["low_files"], res["low_largest_program"] = decode_pass("low budget", low_budget)
+        finally:
+            program.BUDGET = None
+            program.Program.release = plain_release
+        c = program.counts(dev)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        r1, held1 = reserved(), resident()
+        res["low"] = {"budget": low_budget, "evictions": c["evictions"], "evicted_bytes":
+                      evicted[0], "reserved_before": r0, "reserved_after": r1,
+                      "held_before": held0, "held_after": held1,
+                      "programs": {k: c[k] for k in ("programs", "eager", "captures", "replays",
+                                                     "cached", "resident_bytes")}}
+        # Memory not returned would leave the evicted pools reserved: the
+        # rise in reserved bytes would pass the rise in what the cache holds
+        # by about the evicted pools' bytes.
+        slack = 256 << 20
+        if c["evictions"] == 0 or (cuda and evicted[0] < 4 * slack):
+            raise AssertionError(f"phase 23 (b): budget {low_budget} evicted {c['evictions']} "
+                                 f"programs ({evicted[0]} bytes)")
+        if r1 - r0 > held1 - held0 + slack:
+            raise AssertionError(f"phase 23 (b): reserved rose {r1 - r0} bytes, the cache's "
+                                 f"programs {held1 - held0}: evicted pools not returned")
+        print(f"phase 23 {tag} (b) budget {low_budget}: each file == its source, host fallbacks "
+              f"0; {c['evictions']} programs evicted ({evicted[0]} bytes); after "
+              f"empty_cache reserved {r0} -> {r1} bytes while the cache's programs (inputs and "
+              f"pools) went {held0} -> {held1}; programs {res['low']['programs']}; memory after "
+              f"each file: {[(s['reserved'], s['resident_bytes']) for s in res['low_files']]}")
+        program.clear()
+    finally:
+        TorchBatchDecoder.finish_async = plain_finish
+        tmp.cleanup()
+    return res, launches
 
 
 def main() -> int:
@@ -1951,11 +2343,15 @@ def main() -> int:
     )
 
     # ---- phase 13: the encode-side kernels vs plain on phase 12's inputs, and times ----
-    # One more call of phase 12's, collecting what it hands encode_walk and
-    # each kernel: every launch of the call is held to its plain version.
+    # One more call of phase 12's, collecting what it hands encode_walk (a
+    # replay of its program runs no Python), then one eager encode_walk on
+    # those inputs collecting what it hands each kernel: every launch of the
+    # call is held to its plain version.
     encode_device._calls = calls = []
     try:
         port.encode_packets_device(cfg, fit_spec, chunks16)
+        (w_args, w_kw), = [(a, kw) for n, a, kw in calls if n == "encode_walk"]
+        encode_device.encode_walk(*w_args, **w_kw)
     finally:
         encode_device._calls = None
     by = {
@@ -2034,16 +2430,32 @@ def main() -> int:
         f"{body_bytes} bytes in rows of {e_kw['W_out']} words"
     )
     # The device part of the call alone (planes already on the card to words
-    # and bit counts on the card); the rest of the call is host staging, the
-    # upload, the download and the per-packet cut.
-    w_args, w_kw = by["encode_walk"][0]
+    # and bit counts on the card), eagerly and as its program's replay; the
+    # rest of the call is host staging, the upload, the download and the
+    # per-packet cut.
     n_ovf = int(encode_device.encode_walk(*w_args, **w_kw)[2].sum())
     if n_ovf:
         raise AssertionError(f"encode_walk: {n_ovf} lanes overflowed")
     t_walk = cuda_times(lambda: encode_device.encode_walk(*w_args, **w_kw), runs=3)
+    enc_prog, enc_graph = encode_program_check(
+        port, w_args, w_kw, dev, lambda: port.encode_packets_device(cfg, fit_spec, chunks16))
+    t_replay = cuda_times(enc_graph.replay, runs=3)
+    t_call = host_times(lambda: port.encode_packets_device(cfg, fit_spec, chunks16), runs=3)
+    enc_prog.update(replay_ms=summary(t_replay), eager_ms=summary(t_walk),
+                    call_s=summary(t_call))
+    del enc_graph
     print(
-        f"phase 13 {tag} encode_walk alone at B={n_pk} (device part of encode_packets_device, "
-        f"whose warm median is {enc_med * 1e3:.1f} ms): ovf 0; ms {summary(t_walk)}"
+        f"phase 13 {tag} encode_walk at B={n_pk} (the device part of encode_packets_device), "
+        f"ovf 0: as a program ({enc_prog['key']}), the first call ran eagerly, the second "
+        f"captured ({enc_prog['capture_ms']:.1f} ms, pool {enc_prog['pool_bytes']} bytes), the "
+        f"third was one replay (launches {enc_prog['third_call_launches']}, no eager run); a "
+        f"replay's words, bits and ovf == eager encode_walk's on the same static inputs, byte "
+        f"for byte; kernels and copies one replay enqueues (its program run: fill, replay, "
+        f"clones) against one eager encode_walk (torch.profiler): {enc_prog['enqueued']}; ms: "
+        f"replay {summary(t_replay)}, eager {summary(t_walk)} (an earlier run on an H100 80GB "
+        f"HBM3 at 700 W, eager only: 28.9 ms); encode_packets_device s {summary(t_call)} "
+        f"(that run: 0.1204; phase 12's warm median "
+        f"{enc_med:.4f})"
     )
 
 
@@ -2207,9 +2619,10 @@ def main() -> int:
     s_lpc_in = lanes(sw, 8)
     p_args, p_kw = packet_args(scfg, swords, ssizes)
     got = walk_kernel.dense_packet(*p_args, **p_kw)
-    # The plain version on the same batch: five elements a packet, eight
-    # passes of F rows of op launches.
-    want_p, pk_plain_ms = timed(lambda: walk_kernel.dense_packet_reference(*p_args, **p_kw))
+    # The plain version on the same batch, on the host: five elements a
+    # packet, eight passes of F rows of op launches (234.8 s on the card in
+    # an earlier run on an H100 80GB HBM3 at 700 W).
+    want_p, pk_plain_ms = on_host(walk_kernel.dense_packet_reference, *p_args, **p_kw)
     pk_err = packet_diff(got, want_p)
     if pk_err != 0:
         names = ("rows", "err", "ns", "meta", "coefs")
@@ -2252,7 +2665,8 @@ def main() -> int:
     del want_r
     print(
         f"phase 16 {tag} the 7.1 path's kernels at B={n_pk} F={F}, tolerance 0: packet kernel "
-        f"vs plain max_abs_err {pk_err} (plain {pk_plain_ms / 1e3:.1f} s); lpc (L={L16}) vs plain "
+        f"vs plain max_abs_err {pk_err} (plain on the host {pk_plain_ms / 1e3:.1f} s); lpc "
+        f"(L={L16}) vs plain "
         f"{s_l_err}; raw reads vs plain {s_r_err}; packet ms {summary(t_pk)} | bound "
         f"{pk_bound[0]:.4f} by {pk_bound[1]} | {clk_pk[0]:.1f} ns, {clk_pk[1]:.0f} cycles a row "
         f"at {clk_pk[2]:.0f} MHz; lpc taps 9 ms "
@@ -2532,6 +2946,12 @@ def main() -> int:
     res22["phase_s"] = time.perf_counter() - t22
     print(f"phase 22 {tag} numbers: {json.dumps(res22)}")
 
+    # ---- phase 23: a corpus of many configs, the program cache's budget ----
+    t23 = time.perf_counter()
+    res23, l23 = corpus_configs_phase(port, tag, dev)
+    res23["phase_s"] = time.perf_counter() - t23
+    print(f"phase 23 {tag} numbers: {json.dumps(res23)}")
+
     def phase21(kernel):
         """A kernel's launches on each of phase 21's paths, as JSON keys."""
         return {f"launches_phase21_{path}": counts[kernel] for path, counts in l21.items()
@@ -2567,7 +2987,7 @@ def main() -> int:
             "launches": launches["lpc"], "max_abs_err": l_err,
             "launches_phase20_track": l20["track"]["lpc"],
             "launches_phase20_corpus": l20["corpus"]["lpc"],
-            **phase21("lpc"),
+            **phase21("lpc"), "launches_phase23_corpus": l23["lpc"],
             "plain_ms_phase20_window64": res20["plain_ms_window64"]["lpc"],
             "ms": statistics.median(t_lpc), "ms_one": statistics.median(t_lpc1),
             "plain_ms": lpc_plain_ms,
@@ -2588,7 +3008,7 @@ def main() -> int:
             "replaces": "saprobe_alac_tpu/ops/walk_kernel.py:1252",
             "launches": h_launches["raw_read"], "max_abs_err": r_err,
             "launches_phase20_corpus": l20["corpus"]["raw_read"],
-            **phase21("raw_read"),
+            **phase21("raw_read"), "launches_phase23_corpus": l23["raw_read"],
             "plain_ms_phase20_corpus_hires": res20["plain_ms_raw_read_corpus"]["hires"],
             "plain_ms_phase20_corpus_71": res20["plain_ms_raw_read_corpus"]["7.1"],
             "ms": statistics.median(t_rr), "plain_ms": statistics.median(t_rr_plain),
@@ -2634,9 +3054,9 @@ def main() -> int:
             "launches": s_launches["packet"], "max_abs_err": max(pw_err, p_err, pk_err),
             "launches_phase20_track": l20["track"]["packet"],
             "launches_phase20_corpus": l20["corpus"]["packet"],
-            **phase21("packet"),
+            **phase21("packet"), "launches_phase23_corpus": l23["packet"],
             "plain_ms_phase20_window64": res20["plain_ms_window64"]["packet"],
-            "ms": statistics.median(t_pk), "plain_ms": pk_plain_ms,
+            "ms": statistics.median(t_pk), "plain_ms": pk_plain_ms, "plain_on": "host CPU",
             "bound_ms": pk_bound[0], "bound_by": pk_bound[1], "library_ms": None,
             "ns_per_row": clk_pk[0], "cycles_per_row": clk_pk[1], "sm_mhz": clk_pk[2],
             "ptxas": walk_regs.get("packet_kernel"),

@@ -11,11 +11,13 @@ JAX package's error contract (batch.py:32-51, 380-390): the repo's C++ host
 core (``..native``), and the scalar oracle (``..codec``) for a packet the
 core rejects, so it raises the oracle's typed exception.
 
-As the JAX package compiles one program per (config, batch bucket, width
-bucket, taps) and reuses it (batch.py:78-138), a decoder keeps one
-`DecodeProgram` per (rows, width, taps, staging) key (ops/program.py): the
-device part of a call, `_decode_core`, runs eagerly at a key's first use,
-is captured as a CUDA graph at its second, and is one graph replay after.
+As the JAX package compiles one executable per (config statics, batch
+bucket, width bucket, taps) and every decoder of the process reuses it
+(batch.py:78-138), the device part of a call, `_decode_core`, runs through
+the process-wide program of its key (ops/program.py): the config's F, C,
+depth, pb, mb and kb, and (rows, width, taps, staging).  A key's first use
+anywhere in the process runs eagerly, its second is captured as a CUDA
+graph, and every later one, from any decoder, is one graph replay.
 
 Staging is padded by default: the core packs each packet into a row of the
 batch's bucketed width.  ``tight=True`` uploads the packets back to back
@@ -27,7 +29,6 @@ builds the padded rows on the device with one masked gather (batch.py:106-137,
 from __future__ import annotations
 
 import threading
-from collections import OrderedDict
 from functools import partial
 from typing import Sequence
 
@@ -38,9 +39,9 @@ from .. import native
 from ..codec import decode_packet as scalar_decode_packet
 from ..config import PacketConfig
 from ..errors import ConfigError, UnsupportedBitDepth
+from . import program
 from .epilogue import extract_shift, finish_packed
 from .lpc import lpc_batch
-from .program import MAX_PROGRAMS, DecodeProgram
 from .walk import ERR_NONE, channel_offsets, walk_batch
 
 
@@ -125,15 +126,47 @@ def _decode_tight(flat, starts, sizes, *, Wb, **core):
     return _decode_core(_tight_rows(flat, starts, sizes, Wb), sizes, **core)
 
 
+def payload(host: tuple) -> tuple:
+    """The host arrays a call uploads, from `TorchBatchDecoder._host_stage`'s
+    tuple: padded, (words (rows, W), size_bits); tight, (the flat buffer's
+    packet words, word offsets, size_bits).  The tight buffer's words past
+    the last packet are not uploaded: a row is zero at and past its packet's
+    last word (`_tight_rows`), and padding rows have size 0, so no row
+    reads them and the stale words a longer earlier call left there are
+    never seen."""
+    if len(host) == 2:
+        return host
+    flat, starts, sizes, _ = host
+    words = int(((sizes.astype(np.int64) + 31) >> 5).sum())
+    return flat[:words], starts, sizes
+
+
 def _program_key(host: tuple, taps: int) -> tuple:
-    """A `DecodeProgram`'s key from `_host_stage`'s tuple: (rows, W, taps,
-    tight, flat words).  The tight buffer's capacity is the bucket of its
-    size, so calls of one bucket share a program."""
+    """A decode program's shape key from `_host_stage`'s tuple: (rows, W,
+    taps, tight, flat words).  The tight buffer's capacity is the bucket of
+    its size, so calls of one bucket share a program."""
     if len(host) == 2:
         words, _ = host
         return (words.shape[0], words.shape[1], taps, False, 0)
     flat, _, sizes, Wb = host
     return (sizes.shape[0], Wb, taps, True, _bucket(flat.size))
+
+
+def _decode_program(statics: tuple, shape: tuple):
+    """``make`` of the decode program of ``statics`` (F, C, depth, pb, mb,
+    kb) and ``shape`` (`_program_key`): its core, with the channel layout's
+    offsets built on its device, and its static inputs."""
+    F, C, depth, pb, mb, kb = statics
+    rows, W, taps, tight, flat_words = shape
+
+    def make(device):
+        kw = dict(F=F, C=C, depth=depth, pb=pb, mb=mb, kb=kb, taps=taps,
+                  offsets=channel_offsets(C, device))
+        core = partial(_decode_tight, Wb=W, **kw) if tight else partial(_decode_core, **kw)
+        shapes = [(flat_words,), (rows,), (rows,)] if tight else [(rows, W), (rows,)]
+        return core, [(s, torch.int32) for s in shapes]
+
+    return make
 
 
 class TorchBatchDecoder:
@@ -163,14 +196,13 @@ class TorchBatchDecoder:
         # Pinned download buffers not in use: each call in flight takes one
         # of its own, so threads that share a decoder never share a buffer.
         self._pinned_free: list[torch.Tensor] = []
-        # Held around a program's fill, run and clone, and for the pinned
-        # buffers' free list.
+        # Guards the pinned buffers' free list and last_fallbacks; never
+        # held while a program runs.
         self._lock = threading.Lock()
-        # walk.channel_offsets on the device, built at the first program
-        # (constructing a decoder touches no device).
-        self._offsets = None
-        #: The decode programs by key, least recently used first.
-        self._programs: OrderedDict[tuple, DecodeProgram] = OrderedDict()
+        #: The decode programs' static arguments: the config's fields that
+        #: shape the device code (as the JAX jit's static arguments).
+        self.statics = (config.frame_length, config.num_channels, config.bit_depth, config.pb,
+                        config.mb, config.kb)
 
     def _host_stage(self, packets: Sequence[bytes], rows: int | None = None) -> tuple:
         """The host arrays a batch uploads, ``rows`` rows (by default the
@@ -191,7 +223,7 @@ class TorchBatchDecoder:
         # A row gathers Wb words from its offset: size the buffer past the
         # last packet's slice of Wb words, so no row reads beyond it.  (The
         # program's buffer is the bucket of this size, as the JAX package's,
-        # but only the packets' words are uploaded: program.payload.)
+        # but only the packets' words are uploaded: `payload`.)
         last = int(offs[len(packets) - 1]) if packets else 0
         flat = np.zeros(4 * max(int(wc.sum()) + native.GUARD_WORDS, last + Wb), np.uint8)
         for p, o in zip(packets, (4 * offs[: len(packets)]).tolist()):
@@ -231,32 +263,16 @@ class TorchBatchDecoder:
                 self._pinned_free.append(buf)
 
     def decode_async(self, packets: Sequence[bytes], taps: int = 9, rows: int | None = None):
-        """Dispatch a batch through its key's program; returns device tensors
-        (packed, err, ns, wide) of its own, without waiting for the device.
+        """Dispatch a batch through its key's process-wide program; returns
+        device tensors (packed, err, ns, wide) of its own, without waiting
+        for the device.
         ``taps=9`` serves orders up to 8; finish_async re-runs at 32 taps
         when ``wide`` flags an order 9..30, staged as the first run was.
         ``rows``: the batch's rows (by default the bucket of its size)."""
         host = self._host_stage(packets, rows)
-        with self._lock:
-            return self._program(_program_key(host, taps)).run(host)
-
-    def _program(self, key: tuple) -> DecodeProgram:
-        """The key's program, made on first use; the least recently used
-        beyond MAX_PROGRAMS is released.  The caller holds the lock."""
-        prog = self._programs.get(key)
-        if prog is not None:
-            self._programs.move_to_end(key)
-            return prog
-        while len(self._programs) >= MAX_PROGRAMS:
-            self._programs.popitem(last=False)[1].release()
-        cfg = self.config
-        if self._offsets is None:
-            self._offsets = channel_offsets(cfg.num_channels, self.device)
-        kw = dict(F=cfg.frame_length, C=cfg.num_channels, depth=cfg.bit_depth, pb=cfg.pb,
-                  mb=cfg.mb, kb=cfg.kb, taps=key[2], offsets=self._offsets)
-        core = partial(_decode_tight, Wb=key[1], **kw) if key[3] else partial(_decode_core, **kw)
-        prog = self._programs[key] = DecodeProgram(key, self.device, core)
-        return prog
+        shape = _program_key(host, taps)
+        return program.run(self.device, "decode", self.statics, shape,
+                           _decode_program(self.statics, shape), payload(host))
 
     def _to_bytes(self, packed_row: np.ndarray, ns: int) -> bytes:
         """One packet's PCM from its finish_packed row (batch.py:348-364)."""

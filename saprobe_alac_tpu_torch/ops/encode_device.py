@@ -12,6 +12,11 @@ shift regions, bodies and the verbatim (escape) variant into packets.  On a
 CUDA tensor the two kernels run; on a CPU tensor their plain versions;
 nothing else selects.
 
+On a CUDA device `encode_walk` runs as the process-wide program of its
+static arguments and batch bucket (ops/program.py), as the JAX package
+jits it (encode_device.py:455-470): a key's first call eager, its second
+captured as a CUDA graph, every later one one replay.
+
 Bit emission: output words start zeroed and every emitted bit is new, so
 appending is an add (add == or into zeros) and whole zero-tailed buffers can
 be added into a packet at a per-lane bit offset.
@@ -26,6 +31,8 @@ host encoder.
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 import torch.nn.functional as tF
@@ -34,6 +41,7 @@ from .. import native
 from ..config import PacketConfig
 from ..codec.element import CHANNEL_LAYOUT_OFFSETS, LFE_BITSTREAM_IDX, element_layout
 from ..encoder.spec import EncoderSpec
+from . import program
 from .batch import _bucket
 from .encode_kernel import _emit, dense_encode
 from .lpc import _INT32_ORDERS
@@ -48,6 +56,8 @@ I32, I64 = torch.int32, torch.int64
 #: ("lpc_forward" | "encode" | "encode_walk", positional arguments, keyword
 #: arguments) per call, so a check can hold each kernel to its plain version
 #: on exactly the main path's inputs.  None (the default) collects nothing.
+#: The kernels' entries come from eager runs of `encode_walk` only (a graph
+#: replay runs no Python): every run on the CPU, a key's first on the card.
 _calls = None
 
 
@@ -445,6 +455,22 @@ def encode_walk(
     return words, bitpos, ovf_any
 
 
+def encode_walk_program(sources, device, **walk_kw):
+    """`encode_walk` on ``device`` through the process-wide program of its
+    keyword arguments (the JAX jit's static arguments) and batch rows:
+    ``sources`` are the host arrays of its four inputs (planes (Bb, C, F),
+    ns (Bb,), mix_res (Bb,), coefs (E, 32), all int32), copied into the
+    program's static inputs.  Returns fresh (words, bits, ovf)."""
+    if _calls is not None:
+        _note("encode_walk", tuple(torch.from_numpy(a).to(device) for a in sources), walk_kw)
+
+    def make(_device):
+        return partial(encode_walk, **walk_kw), [(a.shape, I32) for a in sources]
+
+    return program.run(device, "encode_walk", tuple(walk_kw.values()), (sources[0].shape[0],),
+                       make, sources)
+
+
 def encode_packets_device(config: PacketConfig, spec: EncoderSpec, pcm_list,
                           device="cuda") -> list[bytes]:
     """Encode packets on ``device`` (the card unless the caller asks for
@@ -495,20 +521,14 @@ def encode_packets_device(config: PacketConfig, spec: EncoderSpec, pcm_list,
         coefs_arr[ei, : len(cvals)] = cvals
         chan += w
 
-    walk_args = (
-        torch.from_numpy(planes).to(device),
-        torch.from_numpy(ns).to(device),
-        torch.full((Bb,), spec.mix_res, dtype=I32, device=device),
-        torch.from_numpy(coefs_arr).to(device),
-    )
+    sources = (planes, ns, np.full(Bb, spec.mix_res, np.int32), coefs_arr)
     walk_kw = dict(
         frame_length=F, num_channels=C, depth=config.bit_depth, pb=config.pb, mb=config.mb,
         kb=config.kb, elem_specs=elem_specs, mix_bits_s=max(spec.mix_bits, 0),
         bytes_shifted=spec.bytes_shifted, use_lfe_tag=spec.use_lfe_tag,
         force_escape=bool(spec.escape), auto_escape=bool(spec.auto_escape),
     )
-    _note("encode_walk", walk_args, walk_kw)
-    words, bits, ovf = encode_walk(*walk_args, **walk_kw)
+    words, bits, ovf = encode_walk_program(sources, device, **walk_kw)
     n_ovf = int(ovf.sum())
     if n_ovf:
         raise RuntimeError(f"encode kernel overflowed its row on {n_ovf} lanes")

@@ -59,8 +59,8 @@ class WalkResult(NamedTuple):
 
 def channel_offsets(C: int, device) -> torch.Tensor:
     """(C,) int32 on ``device``: bitstream channel -> output channel
-    (CHANNEL_LAYOUT_OFFSETS).  A decoder builds it once: building it is a
-    host-to-device copy, which a CUDA graph capture refuses."""
+    (CHANNEL_LAYOUT_OFFSETS).  A decode program builds it once: building it
+    is a host-to-device copy, which a CUDA graph capture refuses."""
     if not 1 <= C <= 8:
         raise ValueError(f"the walk takes C = 1..8, got {C}")
     return torch.tensor(CHANNEL_LAYOUT_OFFSETS[C - 1], dtype=torch.int32, device=device)

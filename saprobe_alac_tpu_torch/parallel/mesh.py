@@ -33,8 +33,9 @@ def make_packet_mesh(devices: Sequence | None = None) -> list[torch.device]:
 class ShardedBatchDecoder(TorchBatchDecoder):
     """Batch decoding sharded over several devices on the packet axis.
 
-    A device may appear more than once (two shards on one card run one
-    after the other there).  A shard's device that fails raises: nothing
+    A device may appear more than once: two shards on one card run one
+    after the other there, through the one program of their key
+    (ops/program.py).  A shard's device that fails raises: nothing
     moves to another device or to the host."""
 
     def __init__(self, config: PacketConfig, devices: Sequence | None = None):

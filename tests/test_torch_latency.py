@@ -3,7 +3,7 @@ tests/test_latency.py.
 
 A time taken on this CPU says nothing of the card, so these tests pin the
 structure that makes a warm B=32 decode cheap there: one host pack and ONE
-device program per batch (`DecodeProgram.run`: one CUDA graph replay on a
+device program per batch (`program.Program.run`: one CUDA graph replay on a
 warm key on the card), never per-packet staging or launches; and the
 streaming facade's one dispatch a window.  `chip_smoke.py` phase 22 (d)
 measures the warm B=32 latency on the card.
@@ -20,7 +20,7 @@ from saprobe_alac_tpu.encoder import EncoderSpec, build_m4a, encode_packets
 from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
 import saprobe_alac_tpu_torch as port
 from saprobe_alac_tpu_torch import native
-from saprobe_alac_tpu_torch.ops.program import DecodeProgram
+from saprobe_alac_tpu_torch.ops import program
 
 
 def _fixture(B, F):
@@ -51,6 +51,7 @@ def test_warm_small_batch_single_dispatch(monkeypatch):
     """A warm B=32 decode_packets performs exactly one host pack and one
     device program run: no per-packet staging or uploads."""
     cfg, pkts, pcm = _fixture(B=32, F=256)
+    program.clear()
     dec = port.BatchDecoder(port.PacketConfig(**cfg.__dict__), "cpu")
     want = pcm.astype("<i2").tobytes()
     assert b"".join(dec.decode_packets(pkts)) == want  # the key's first use
@@ -58,11 +59,12 @@ def test_warm_small_batch_single_dispatch(monkeypatch):
 
     calls = {}
     _count(monkeypatch, native, "pack_packets", calls)
-    _count(monkeypatch, DecodeProgram, "run", calls)
+    _count(monkeypatch, program.Program, "run", calls)
     assert b"".join(dec.decode_packets(pkts)) == want
     assert calls == {"pack_packets": 1, "run": 1}
-    (prog,) = dec.impl._programs.values()
+    (prog,) = program.programs("cpu")
     assert prog.uses == 2
+    program.clear()
 
 
 def test_facade_single_dispatch_per_window(monkeypatch):
@@ -72,7 +74,7 @@ def test_facade_single_dispatch_per_window(monkeypatch):
     cfg, pkts, pcm = _fixture(B=48, F=128)
     blob = build_m4a(cfg, pkts, [cfg.frame_length] * len(pkts))
     calls = {}
-    _count(monkeypatch, DecodeProgram, "run", calls)
+    _count(monkeypatch, program.Program, "run", calls)
     dec = port.new_decoder(io.BytesIO(blob), backend="cpu", batch_size=16)
     assert dec.read() == pcm.astype("<i2").tobytes()
     assert 3 <= calls["run"] <= 4

@@ -1,10 +1,12 @@
-"""The port's decode programs (ops/program.py): one `DecodeProgram` per
-(rows, width, taps, staging) key, its static inputs filled anew by every
-call.  On the CPU every call runs the decode eagerly on those inputs, so
-these tests reach the fill that a CUDA graph replay reads on the card: calls
-of several sizes on one key, padded and tight (a tight call after a longer
-one leaves stale words in the static buffer), the 9- and 32-tap programs of
-one batch, two calls in flight on one key, and the cache's limit.  Every
+"""The port's decode programs (ops/program.py): one process-wide `Program`
+per (config statics, rows, width, taps, staging) key, its static inputs
+allocated at its second call and filled anew by every call from then on.
+On the CPU every call runs the decode eagerly (from the second on those
+inputs), so these tests reach the fill that a CUDA graph replay reads on
+the card: calls of several sizes on one key, padded and tight (a tight
+call after a longer one leaves stale words in the static buffer), the 9- and
+32-tap programs of one batch, two calls in flight on one key, and the
+cache's budget (eviction by pool bytes, least recently used first).  Every
 call's bytes equal the JAX package's `JaxBatchDecoder` and the JAX oracle,
 packet by packet (one JAX call on all the packets: each packet decodes on
 its own)."""
@@ -23,7 +25,7 @@ from saprobe_alac_tpu.encoder import ChannelSpec, EncoderSpec, encode_packets
 from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
 from saprobe_alac_tpu_torch import PacketConfig, TorchBatchDecoder, _build
 from saprobe_alac_tpu_torch.ops import program
-from saprobe_alac_tpu_torch.ops.batch import _program_key, _tight_rows
+from saprobe_alac_tpu_torch.ops.batch import _program_key, _tight_rows, payload
 from saprobe_alac_tpu_torch.ops.torchint import sext, shl, sshr, ushr
 
 F = 128
@@ -47,6 +49,19 @@ def case():
     return PacketConfig(**dataclasses.asdict(cfg)), pk, o12, want
 
 
+@pytest.fixture(autouse=True)
+def fresh_cache():
+    """Each test starts and ends with an empty process-wide cache."""
+    program.clear()
+    yield
+    program.clear()
+
+
+def _progs():
+    """The cached programs on the CPU, least recently used first."""
+    return program.programs("cpu")
+
+
 def _decode(dec, packets, rows=ROWS):
     return dec.finish_async(dec.decode_async(packets, rows=rows), packets)
 
@@ -63,20 +78,20 @@ def test_calls_of_several_sizes_share_a_program(case, tight):
         assert _decode(dec, pk[:n]) == [want[p] for p in pk[:n]]
         assert dec.last_fallbacks == 0
     if not tight:
-        (prog,) = dec._programs.values()
-        assert prog.key == (ROWS, 128, 9, False, 0) and prog.uses == 5
+        (prog,) = _progs()
+        assert prog.shape == (ROWS, 128, 9, False, 0) and prog.uses == 5
         return
     host = dec._host_stage(pk[:40], ROWS)
-    prog = dec._programs[_program_key(host, 9)]
+    prog = {p.shape: p for p in _progs()}[_program_key(host, 9)]
     assert prog.uses == 3  # 40, 48, 40
-    flat, *_ = program.payload(host)
+    flat, *_ = payload(host)
     assert flat.size == sum((len(p) + 3) // 4 for p in pk[:40])  # only the packets' words
     stale = prog.inputs[0][flat.size:]
     assert bool((stale != 0).any())  # the call of 48 left its words there
     # ... and no row reads them: the rows gathered from the static inputs
     # equal the padded rows of the same call.
     words, _ = TorchBatchDecoder(pc, "cpu")._stage(pk[:40], ROWS)
-    assert torch.equal(_tight_rows(*prog.inputs, prog.key[1]), words)
+    assert torch.equal(_tight_rows(*prog.inputs, prog.shape[1]), words)
 
 
 @pytest.mark.parametrize("tight", [False, True])
@@ -87,7 +102,7 @@ def test_wide_order_runs_the_32_tap_program_of_the_same_rows(case, tight):
     batch = pk[:20] + [o12] + pk[20:30]
     dec = TorchBatchDecoder(pc, "cpu", tight=tight)
     assert dec.decode_packets(batch) == [want[p] for p in batch]
-    k9, k32 = dec._programs
+    k9, k32 = (p.shape for p in _progs())
     assert (k9[2], k32[2]) == (9, 32) and k9[:2] == k32[:2] == (32, 128)  # 31 packets
     assert k9[3:] == k32[3:]
 
@@ -101,28 +116,45 @@ def test_two_calls_in_flight_on_one_key(case, tight):
     a, b = pk[:33], pk[10:43]
     ha = dec.decode_async(a, rows=ROWS)
     hb = dec.decode_async(b, rows=ROWS)
-    assert len(dec._programs) == 1 and next(iter(dec._programs.values())).uses == 2
+    assert [p.uses for p in _progs()] == [2]
     assert dec.finish_async(hb, b) == [want[p] for p in b]
     assert dec.finish_async(ha, a) == [want[p] for p in a]
 
 
-def test_cache_keeps_at_most_max_programs(case):
-    """More keys than MAX_PROGRAMS leave MAX_PROGRAMS programs, the least
-    recently used released; an evicted key decodes correctly again."""
+def test_cache_keeps_at_most_max_programs(case, monkeypatch):
+    """Keys whose pools pass the budget leave the budget's worth of
+    programs, the least recently used released; an evicted key decodes
+    correctly again.  Each program's pool is set to 100 bytes at its first
+    use and the budget to 8 pools' worth."""
     pc, pk, _, want = case
+    pool_at_first_use(monkeypatch, lambda prog: 100)
+    monkeypatch.setattr(program, "BUDGET", 8 * 100)
     one = [max(pk, key=len)]
     dec = TorchBatchDecoder(pc, "cpu")
     rows = [8, 12, 16, 24, 32, 48, 64, 96, 128]
-    assert len(rows) > program.MAX_PROGRAMS
     first = None
     for r in rows:
         assert _decode(dec, one, rows=r) == [want[one[0]]]
-        first = first or dec._programs[next(iter(dec._programs))]
-    assert len(dec._programs) == program.MAX_PROGRAMS
-    assert [k[0] for k in dec._programs] == rows[1:]
-    assert first.inputs is None  # released
+        first = first or _progs()[0]
+    assert [p.shape[0] for p in _progs()] == rows[1:]
+    assert program.counts("cpu")["resident_bytes"] == 800
+    assert first.released and first.inputs is None
     assert _decode(dec, one, rows=rows[0]) == [want[one[0]]]
-    assert [k[0] for k in dec._programs] == rows[2:] + rows[:1]
+    assert [p.shape[0] for p in _progs()] == rows[2:] + rows[:1]
+
+
+def pool_at_first_use(monkeypatch, size):
+    """Give each program a pool of ``size(program)`` bytes once it has run,
+    as a capture on the card would (a CPU program has none)."""
+    real = program.Program.run
+
+    def run(self, sources):
+        out = real(self, sources)
+        if self.pool_bytes is None:
+            self.pool_bytes = size(self)
+        return out
+
+    monkeypatch.setattr(program.Program, "run", run)
 
 
 def test_launches_recorded_while_capturing_stay_on_the_thread():
