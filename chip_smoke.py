@@ -644,7 +644,7 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
     from saprobe_alac_tpu_torch.encoder import EncoderSpec, encode_to_m4a
     from saprobe_alac_tpu_torch.ops import program
     from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
-    from saprobe_alac_tpu_torch.utils.profiling import PhaseTimer, decode_stages
+    from saprobe_alac_tpu_torch.utils.profiling import stage_timer
     from saprobe_alac_tpu_torch.utils.wav import wav_header, write_wav
 
     backend = dev.type
@@ -779,14 +779,16 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
         one = host_times(lambda: bd.decode_packets(packets), runs=runs)
         res["one_call_s"] = summary(one)
         no_fallbacks("track, windows")
-        # The same two ways stage by stage, each stage synchronised: summed
-        # over the 101 windows of 64, and for the one call.
-        win_t, one_t, pcm_w = PhaseTimer(), PhaseTimer(), []
-        for lo in range(0, n_pk, 64):
-            pcm_w += decode_stages(bd.impl, packets[lo : lo + 64], win_t)[0]
-        one_out, _ = decode_stages(bd.impl, packets, one_t)
+        # The same two ways, their host stages read from the port's spans:
+        # summed over the 101 windows of 64, and for the one call.
+        pcm_w = []
+        with stage_timer() as win_t:
+            for lo in range(0, n_pk, 64):
+                pcm_w += bd.decode_packets(packets[lo : lo + 64])
+        with stage_timer() as one_t:
+            one_out = bd.decode_packets(packets)
         if b"".join(pcm_w) != src or b"".join(one_out) != src:
-            raise AssertionError("phase 20 track: a stage-by-stage decode differs")
+            raise AssertionError("phase 20 track: a decode under the profiler differs")
         del pcm_w, one_out
         win_st = res["stages_ms_windows64_sum"] = win_t.ms()
         one_st = res["stages_ms_one_call"] = one_t.ms()
@@ -811,7 +813,7 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
             f"{res['window64_ms']['decode_async']}, the card's tail after it "
             f"{res['window64_ms']['card_tail']}, finish_async {res['window64_ms']['finish_async']}"
             f" (sum {res['window64_ms']['sum_s']:.3f} s); one decode_packets call on all "
-            f"{n_pk} packets, s {res['one_call_s']}; stage by stage (synchronised, ms), summed "
+            f"{n_pk} packets, s {res['one_call_s']}; host stages (the port's spans, ms), summed "
             f"over the windows of 64: { {k: round(v, 1) for k, v in win_st.items()} }, the one "
             f"call: { {k: round(v, 1) for k, v in one_st.items()} }; the last window's "
             f"packet walk and LPC vs plain: max_abs_err 0 (plain on the host, ms "
@@ -1090,7 +1092,7 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
         way = "tight" if tight_ else "padded"
         port.reset_launch_counts()
         timer, out = profile_batch_decode(c71, pk71, iters=1, device=dev, tight=tight_)
-        launched(f"(c) profile_batch_decode {way}", "profiler", c71, per=2)  # warm + 1
+        launched(f"(c) profile_batch_decode {way}", "profiler", c71, per=3)  # 2 warm + 1
         check_decode(out, pcm71, 24)
         del out
         res[f"profile_71_{way}_ms"] = timer.ms()
@@ -1715,7 +1717,7 @@ def main() -> int:
     from saprobe_alac_tpu_torch.ops.epilogue import shift_reads
     from saprobe_alac_tpu_torch.ops.raw_reader import raw_read, raw_read_reference
     from saprobe_alac_tpu_torch.ops.walk import walk_batch
-    from saprobe_alac_tpu_torch.utils.profiling import PhaseTimer, decode_stages, profile_call
+    from saprobe_alac_tpu_torch.utils.profiling import profile_call, stage_timer
 
     dev = torch.device("cuda")
     card = card_line()
@@ -2597,21 +2599,14 @@ def main() -> int:
            if seen else "not measured (the profiler's records of the call lack the packet kernel)")
     )
 
-    # One call stage by stage, each synchronised and timed by the host clock:
-    # where the host holds the card back.
-    st = PhaseTimer()
-    s_out, down_bytes = decode_stages(sdec.impl, spkts, st)
+    # One call's host stages, read from the port's spans: where the host
+    # holds the card back.
+    with stage_timer() as st:
+        s_out = sdec.decode_packets(spkts)
     check_decode(s_out, spcm, 24)
     del s_out
-    st = st.ms()
-    print(
-        f"phase 15 {tag} one 7.1 call stage by stage (host clock, synchronised, ms): pack and "
-        f"upload {st['pack_upload']:.1f}; walk (packet kernel) {st['walk']:.1f}; lpc lanes "
-        f"{st['lpc_lanes']:.1f}; lpc kernel {st['lpc']:.1f}; shift reads "
-        f"{st['shift_reads']:.1f}; unmix, re-insert, remap and 3-byte packing "
-        f"{st['epilogue']:.1f}; download of {down_bytes} bytes {st['download']:.1f}; trim to "
-        f"{n_pk} bytes objects {st['trim']:.1f}"
-    )
+    print(f"phase 15 {tag} one 7.1 call's host stages (the port's spans, ms): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in st.ms().items()))
 
     # ---- phase 16: the 7.1 path's kernels at its shapes ----
     swords, ssizes = sdec.impl._stage(spkts)

@@ -85,6 +85,12 @@ class BatchDecoder:
     def format(self) -> PCMFormat:
         return self._format
 
+    @property
+    def last_fallbacks(self) -> int:
+        """Packets of the batch that finished last that the host path
+        decoded (0 on a host backend)."""
+        return self.impl.last_fallbacks if self.impl is not None else 0
+
     def decode_packets(self, packets: Sequence[bytes]) -> list[bytes]:
         """Decode a batch of packets; returns per-packet PCM byte strings."""
         if not packets:

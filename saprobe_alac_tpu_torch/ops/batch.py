@@ -24,6 +24,18 @@ batch's bucketed width.  ``tight=True`` uploads the packets back to back
 instead, each padded only to its own word, with their word offsets, and
 builds the padded rows on the device with one masked gather (batch.py:106-137,
 273-302): fewer bytes over the link, the same rows.
+
+While a torch.profiler session records, a call records its host stages as
+spans (utils/profiling.py): ``alac.batch.submit`` around `decode_async`,
+holding ``alac.batch.pack`` (`_host_stage`) and the program's
+``alac.program.dispatch`` and ``alac.program.fill``; ``alac.batch.finish``
+around `finish_async`, holding ``alac.batch.download`` (the readbacks and
+the pinned copy; the 32-tap retry's submit inside it),
+``alac.batch.fallback`` (error lanes on the host) and ``alac.batch.trim``
+(the ``bytes``).  Every span of a call shares its ``call`` id: the handle
+carries it from the submit to the finish.  The card's counters
+(`program.counts`) count ``calls``, ``packets``, ``fallback_packets`` and
+``wide_retries`` whether or not a profiler records.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from .. import native
 from ..codec import decode_packet as scalar_decode_packet
 from ..config import PacketConfig
 from ..errors import ConfigError, UnsupportedBitDepth
+from ..utils.profiling import DOWNLOAD, FALLBACK, FINISH, PACK, SUBMIT, TRIM, span
 from . import program
 from .epilogue import extract_shift, finish_packed
 from .lpc import lpc_batch
@@ -152,6 +165,23 @@ def _program_key(host: tuple, taps: int) -> tuple:
     return (sizes.shape[0], Wb, taps, True, _bucket(flat.size))
 
 
+class _Handle(tuple):
+    """A handle made under a recorded span: the tuple, with the ``call`` id
+    its spans share."""
+
+    call = None
+
+
+def _tagged(handle, recorded):
+    """``handle``, carrying ``recorded``'s call id where the span was
+    recorded (a `_Handle`), else as it is."""
+    if recorded.call is None:
+        return handle
+    out = _Handle(handle)
+    out.call = recorded.call
+    return out
+
+
 def _decode_program(statics: tuple, shape: tuple):
     """``make`` of the decode program of ``statics`` (F, C, depth, pb, mb,
     kb) and ``shape`` (`_program_key`): its core, with the channel layout's
@@ -182,6 +212,7 @@ class TorchBatchDecoder:
         if not 1 <= config.num_channels <= 8:
             raise ConfigError(f"unsupported channel count {config.num_channels}")
         self.device = torch.device(device)
+        self._card = str(self.device)  # the spans' ``card``
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
         if self.device.type not in ("cpu", "cuda"):
@@ -269,10 +300,21 @@ class TorchBatchDecoder:
         ``taps=9`` serves orders up to 8; finish_async re-runs at 32 taps
         when ``wide`` flags an order 9..30, staged as the first run was.
         ``rows``: the batch's rows (by default the bucket of its size)."""
-        host = self._host_stage(packets, rows)
-        shape = _program_key(host, taps)
-        return program.run(self.device, "decode", self.statics, shape,
-                           _decode_program(self.statics, shape), payload(host))
+        program.add_counts(self.device, calls=1, packets=len(packets))
+        return self._submit(packets, taps, rows)
+
+    def _submit(self, packets: Sequence[bytes], taps: int, rows: int | None):
+        """Stage a batch and run its key's program (``alac.batch.submit``)."""
+        with span(SUBMIT) as s:
+            with span(PACK):
+                host = self._host_stage(packets, rows)
+            shape = _program_key(host, taps)
+            if s.recording:
+                s.set(packets=len(packets), card=self._card, taps=taps, rows=shape[0],
+                      width=shape[1])
+            handle = program.run(self.device, "decode", self.statics, shape,
+                                 _decode_program(self.statics, shape), payload(host))
+        return _tagged(handle, s)
 
     def _to_bytes(self, packed_row: np.ndarray, ns: int) -> bytes:
         """One packet's PCM from its finish_packed row (batch.py:348-364)."""
@@ -291,23 +333,31 @@ class TorchBatchDecoder:
 
     def finish_async(self, handle, packets: Sequence[bytes]) -> list[bytes]:
         """Materialize a decode_async result into per-packet PCM bytes."""
-        packed, err, ns, wide = handle
-        if bool(wide[: len(packets)].any()):
-            packed, err, ns, _ = self.decode_async(packets, taps=32, rows=err.shape[0])
-        err = err.cpu().numpy()
-        ns = ns.cpu().numpy()
-        fb_idx = [i for i in range(len(packets)) if err[i] != ERR_NONE]
-        fb = {}
-        if fb_idx:
-            fb = dict(zip(fb_idx, _host_decode(self.config, [packets[i] for i in fb_idx])))
-        host, buf = self._download(packed)
-        try:
-            out = [
-                fb[i] if i in fb else self._to_bytes(host[i], int(ns[i]))
-                for i in range(len(packets))
-            ]
-        finally:
-            self._release(buf)
+        n = len(packets)
+        with span(FINISH, getattr(handle, "call", None)) as s:
+            if s.recording:
+                s.set(packets=n, card=self._card)
+            packed, err, ns, wide = handle
+            with span(DOWNLOAD):
+                if bool(wide[:n].any()):
+                    program.add_counts(self.device, wide_retries=1)
+                    packed, err, ns, _ = self._submit(packets, 32, err.shape[0])
+                err = err.cpu().numpy()
+                ns = ns.cpu().numpy()
+                host, buf = self._download(packed)
+            try:
+                fb_idx = np.flatnonzero(err[:n] != ERR_NONE).tolist()
+                fb = {}
+                if fb_idx:
+                    program.add_counts(self.device, fallback_packets=len(fb_idx))
+                    with span(FALLBACK, packets=len(fb_idx)):
+                        fb = dict(zip(fb_idx, _host_decode(self.config,
+                                                           [packets[i] for i in fb_idx])))
+                with span(TRIM):
+                    out = [fb[i] if i in fb else self._to_bytes(host[i], int(ns[i]))
+                           for i in range(n)]
+            finally:
+                self._release(buf)
         with self._lock:
             self.last_fallbacks = len(fb_idx)
         return out

@@ -59,6 +59,15 @@ program's.  A released pool goes back to PyTorch's caching allocator,
 which returns it to the card at `torch.cuda.empty_cache()` or when an
 allocation would otherwise fail.
 
+Tracing: while a torch.profiler session records, `run` records an
+``alac.program.dispatch`` span (the lookup, the wait on the previous
+clones, the eager run, capture or replay, named in its ``ran`` attribute,
+the clones and the settling) and, inside it, an ``alac.program.fill``
+span around the copy of the sources into the program's inputs, whose
+``bytes`` attribute counts what it copied from the host (utils/profiling.py).
+The counters (`counts`) add those bytes up as ``upload_bytes``, whether or
+not a profiler records; `add_counts` takes the batch layer's own.
+
 Locks: the cache's lock guards the table and the counters; each program's
 own lock its fill, run and clone.  They are taken one at a time, never
 nested: a program is released under its own lock after the cache's lock
@@ -77,6 +86,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import DISPATCH, FILL, span
 
 #: Bytes of programs (static inputs and graph pools) the cache keeps
 #: resident a device; None: a quarter of the card's total memory, read at
@@ -88,8 +98,12 @@ HOST_BUDGET = 1 << 30
 MAX_KEYS = 1024
 
 #: What `counts` reports a device: programs made, eager runs, captures,
-#: replays (a capture's own replay included) and programs evicted.
-_COUNTERS = ("programs", "eager", "captures", "replays", "evictions")
+#: replays (a capture's own replay included), programs evicted, and bytes
+#: copied from the host into programs' inputs; then the batch layer's
+#: (`add_counts`): batch calls submitted (a sharded call: one a shard) and
+#: their packets, packets decoded on the host, and 32-tap retries.
+_COUNTERS = ("programs", "eager", "captures", "replays", "evictions", "upload_bytes", "calls",
+             "packets", "fallback_packets", "wide_retries")
 
 _lock = threading.Lock()
 #: Every device's programs by key, least recently used first.
@@ -121,6 +135,8 @@ class Program:
         #: Bytes the card reserved for the graph's memory pool at capture (the
         #: rise of torch.cuda.memory_reserved: the pool takes new segments).
         self.pool_bytes = None
+        #: Bytes the last run copied from the host into the inputs.
+        self.uploaded = 0
         self._done = None  # event after the last call's clones (CUDA)
 
     @property
@@ -135,6 +151,7 @@ class Program:
         of the caller's, and what ran: "eager", or "capture" and "replay",
         or "replay").  The caller holds the lock."""
         self.uses += 1
+        self.uploaded = 0
         if self.uses == 1:
             return tuple(self.core(*self._staged(sources))), ("eager",)
         if self.device.type != "cuda":
@@ -166,15 +183,19 @@ class Program:
         input's shape, dtype and device as it is, any other copied into the
         leading rows of a zeroed tensor."""
         staged = []
-        for (shape, dtype), src in zip(self.specs, sources):
-            if isinstance(src, np.ndarray):
-                src = torch.from_numpy(src)
-            if tuple(src.shape) == shape and src.dtype == dtype and src.device == self.device:
-                staged.append(src)
-                continue
-            t = torch.zeros(shape, dtype=dtype, device=self.device)
-            t[: len(src)].copy_(src, non_blocking=True)
-            staged.append(t)
+        with span(FILL) as s:
+            for (shape, dtype), src in zip(self.specs, sources):
+                if isinstance(src, np.ndarray):
+                    src = torch.from_numpy(src)
+                if tuple(src.shape) == shape and src.dtype == dtype and src.device == self.device:
+                    staged.append(src)
+                    continue
+                t = torch.zeros(shape, dtype=dtype, device=self.device)
+                t[: len(src)].copy_(src, non_blocking=True)
+                staged.append(t)
+                self.uploaded += _host_bytes(src)
+            if s.recording:
+                s.set(bytes=self.uploaded)
         return staged
 
     def _allocate(self) -> None:
@@ -188,10 +209,14 @@ class Program:
         # Non-blocking: a copy from pageable memory returns once CUDA has
         # staged the host bytes, without waiting for the stream's earlier
         # work, so the lock is held for the enqueue alone.
-        for dst, src in zip(self.inputs, sources):
-            if isinstance(src, np.ndarray):
-                src = torch.from_numpy(src)
-            dst[: len(src)].copy_(src, non_blocking=True)
+        with span(FILL) as s:
+            for dst, src in zip(self.inputs, sources):
+                if isinstance(src, np.ndarray):
+                    src = torch.from_numpy(src)
+                dst[: len(src)].copy_(src, non_blocking=True)
+                self.uploaded += _host_bytes(src)
+            if s.recording:
+                s.set(bytes=self.uploaded)
 
     def _capture(self) -> None:
         """Capture the core on the static inputs into a CUDA graph with a
@@ -225,6 +250,11 @@ class Program:
         self.released = True
 
 
+def _host_bytes(src: torch.Tensor) -> int:
+    """The bytes of a source copied from host memory (0 from a card)."""
+    return src.numel() * src.element_size() if src.device.type == "cpu" else 0
+
+
 def _device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
@@ -253,28 +283,33 @@ def run(device, kind: str, statics: tuple, shape: tuple,
     ``sources`` and return its outputs; ``make(device)`` gives a new
     program's (core, input (shape, dtype)s) when the cache has none."""
     key = (_device(device), kind, statics, shape)
-    while True:
-        with _lock:
-            prog = _programs.get(key)
-            if prog is None:
-                prog = _programs[key] = Program(key, *make(key[0]))
-                _counter(key[0])["programs"] += 1
-            else:
-                _programs.move_to_end(key)
-        with prog.lock:
-            if prog.released:  # evicted since the lookup: look it up again
-                continue
-            out, ran = prog.run(sources)
-        _settle(prog, ran)
-        return out
+    with span(DISPATCH) as s:
+        while True:
+            with _lock:
+                prog = _programs.get(key)
+                if prog is None:
+                    prog = _programs[key] = Program(key, *make(key[0]))
+                    _counter(key[0])["programs"] += 1
+                else:
+                    _programs.move_to_end(key)
+            with prog.lock:
+                if prog.released:  # evicted since the lookup: look it up again
+                    continue
+                out, ran = prog.run(sources)
+                uploaded = prog.uploaded
+            _settle(prog, ran, uploaded)
+            if s.recording:
+                s.set(kind=kind, ran=ran)
+            return out
 
 
 def _counter(device: torch.device) -> dict[str, int]:
     return _counts.setdefault(device, dict.fromkeys(_COUNTERS, 0))
 
 
-def _settle(prog: Program, ran: tuple) -> None:
-    """Count what ``prog``'s run did, then release the device's least
+def _settle(prog: Program, ran: tuple, uploaded: int) -> None:
+    """Count what ``prog``'s run did (``uploaded``: the bytes it copied
+    from the host), then release the device's least
     recently used programs while they keep more than the budget's bytes
     (the programs that keep nothing stay) or are more than `MAX_KEYS`."""
     victims = []
@@ -282,6 +317,7 @@ def _settle(prog: Program, ran: tuple) -> None:
         counter = _counter(prog.device)
         for what in ran:
             counter[{"capture": "captures", "replay": "replays"}.get(what, what)] += 1
+        counter["upload_bytes"] += uploaded
         mine = [p for p in _programs.values() if p.device == prog.device]
         total = sum(p.resident_bytes for p in mine)
         over_bytes, over_keys = total - budget(prog.device), len(mine) - MAX_KEYS
@@ -321,6 +357,15 @@ def counts(device) -> dict[str, int]:
         mine = [p for p in _programs.values() if p.device == device]
         return {**_counter(device), "resident_bytes": sum(p.resident_bytes for p in mine),
                 "cached": len(mine)}
+
+
+def add_counts(device, **added: int) -> None:
+    """Add to ``device``'s counters (names from `_COUNTERS`)."""
+    device = _device(device)
+    with _lock:
+        counter = _counter(device)
+        for name, n in added.items():
+            counter[name] += n
 
 
 def reset_counts() -> None:

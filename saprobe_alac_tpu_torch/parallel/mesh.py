@@ -16,7 +16,8 @@ from typing import Sequence
 import torch
 
 from ..config import PacketConfig
-from ..ops.batch import TorchBatchDecoder, _bucket
+from ..ops.batch import TorchBatchDecoder, _bucket, _tagged
+from ..utils.profiling import FINISH, SUBMIT, span
 
 
 def make_packet_mesh(devices: Sequence | None = None) -> list[torch.device]:
@@ -52,22 +53,31 @@ class ShardedBatchDecoder(TorchBatchDecoder):
         handles with their packets.  The bucket is rounded up to a multiple
         of the shard count (mesh.py:86-87), so every shard has the same
         rows.  A trailing shard that would hold only padding has nothing to
-        decode and is not dispatched."""
+        decode and is not dispatched.  One ``alac.batch.submit`` span holds
+        the shards' own."""
         n = len(self._shards)
         rows = -(-max(_bucket(len(packets)), n) // n)
         parts = [packets[k * rows : (k + 1) * rows] for k in range(n)]
-        return [
-            (shard.decode_async(part, taps=taps, rows=rows) if part else None, part)
-            for shard, part in zip(self._shards, parts)
-        ]
+        with span(SUBMIT) as s:
+            if s.recording:
+                s.set(packets=len(packets), shards=n)
+            handle = [
+                (shard.decode_async(part, taps=taps, rows=rows) if part else None, part)
+                for shard, part in zip(self._shards, parts)
+            ]
+        return _tagged(handle, s)
 
     def finish_async(self, handle, packets: Sequence[bytes]) -> list[bytes]:
         """Each shard's bytes in packet order (its error lanes on the host,
-        its 32-tap retry on its own device); `last_fallbacks` is the sum."""
+        its 32-tap retry on its own device); `last_fallbacks` is the sum.
+        One ``alac.batch.finish`` span holds the shards' own."""
         out, fallbacks = [], 0
-        for shard, (h, part) in zip(self._shards, handle):
-            if part:
-                out += shard.finish_async(h, part)
-                fallbacks += shard.last_fallbacks
+        with span(FINISH, getattr(handle, "call", None)) as s:
+            if s.recording:
+                s.set(packets=len(packets), shards=len(self._shards))
+            for shard, (h, part) in zip(self._shards, handle):
+                if part:
+                    out += shard.finish_async(h, part)
+                    fallbacks += shard.last_fallbacks
         self.last_fallbacks = fallbacks
         return out

@@ -2,24 +2,45 @@
 
 Counterpart of saprobe_alac_tpu/utils/profiling.py: a torch.profiler trace
 of the device pipeline (`device_trace`), the card's busy time within one
-call (`profile_call`), wall-clock phase accounting (`PhaseTimer`), and the
-batch decode path stage by stage, each stage synchronised (`decode_stages`,
-`profile_batch_decode`): where the host holds the card back.
+call (`profile_call`), wall-clock phase accounting (`PhaseTimer`), the
+port's own spans (`span`, `spans`), and the batch decode path's host stages
+read from them (`stage_timer`, `profile_batch_decode`): where the host
+holds the card back.
+
+A span records only while a torch.profiler session is recording in the
+process; otherwise it costs one check.  Recorded spans are named
+``alac.<layer>.<stage>`` (the batch and program layers' names are the
+constants below, used at every site that records one), enter
+`record_function` under their name,
+so a Chrome trace shows them beside the card's work, and are kept in
+memory, the newest `RING` of them, with their times on the profiler's clock
+(Unix-epoch nanoseconds, as kineto stamps its host events).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
 
-#: The stages of one decode call, in order (`decode_stages`).
-STAGES = ("pack_upload", "walk", "lpc_lanes", "lpc", "shift_reads", "epilogue", "download",
-          "trim")
-
+#: A batch call's outer spans: `decode_async` and `finish_async`.
+SUBMIT, FINISH = "alac.batch.submit", "alac.batch.finish"
+#: Its host stages: the host stage (`_host_stage`), the copy into a
+#: program's inputs, the rest of `program.run`, the readbacks and the
+#: pinned copy, the ``bytes``; and the host decode of error lanes.
+PACK, FILL, DISPATCH = "alac.batch.pack", "alac.program.fill", "alac.program.dispatch"
+DOWNLOAD, TRIM, FALLBACK = "alac.batch.download", "alac.batch.trim", "alac.batch.fallback"
+#: The host stages of one batch call, in order, each recorded once a call
+#: (`stage_timer`); `FALLBACK` joins them in a call with error lanes.
+STAGES = (PACK, FILL, DISPATCH, DOWNLOAD, TRIM)
+#: The most spans kept; older ones are dropped.
+RING = 1 << 20
 
 def _activities():
     from torch.profiler import ProfilerActivity
@@ -66,8 +87,11 @@ def profile_call(fn, sync=None):
     by_name = {}
     for e in events:
         inside = mark.time_range.start <= e.time_range.start <= mark.time_range.end
-        # The profiler's own buffer request is no work of the call.
-        ours = e.name != "profiled_call" and not e.name.startswith("Activity Buffer")
+        # The profiler's own buffer request and the annotations on the
+        # card's timeline (the marked call, the port's spans) are no work
+        # of the call.
+        ours = (e.name != "profiled_call" and not e.name.startswith(("Activity Buffer", "alac."))
+                and not getattr(e, "is_user_annotation", False))
         if e.device_type == DeviceType.CUDA and inside and ours:
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
@@ -108,72 +132,147 @@ class PhaseTimer:
         return "\n".join(lines)
 
 
-def decode_stages(impl, packets, timer: PhaseTimer):
-    """One decode of ``packets`` by ``impl`` (a `TorchBatchDecoder`, padded
-    or tight) stage by stage, each stage synchronised and added to
-    ``timer`` under its name in `STAGES`.  The LPC's lane setup and its
-    kernel are stages of their own; a batch with an order 9..30 lane runs
-    the 32-tap LPC, and error lanes decode on the host within ``trim``, as
-    ``impl.finish_async`` would.  Returns (the call's bytes, the bytes the
-    download copied)."""
-    from ..ops.batch import _host_decode
-    from ..ops.epilogue import extract_shift, finish_packed
-    from ..ops.lpc import lpc_fir, lpc_lanes
-    from ..ops.walk import ERR_NONE, walk_batch
+_profiling = torch._C._autograd._profiler_enabled
+_ring: deque = deque(maxlen=RING)
+_ids = itertools.count(1)
+_local = threading.local()
 
-    c = impl.config
-    F, C, depth = c.frame_length, c.num_channels, c.bit_depth
-    dev = impl.device
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else None
-    if sync:
-        sync()
 
-    def stage(name):
-        return timer.phase(name, sync)
+class _Off:
+    """What `span` gives while no profiler records: a shared context that
+    does nothing."""
 
-    with stage("pack_upload"):
-        words, sizes = impl._stage(packets)
-    with stage("walk"):
-        w = walk_batch(words, sizes, F=F, C=C, depth=depth, pb=c.pb, mb=c.mb, kb=c.kb)
-    L = words.shape[0] * C
-    with stage("lpc_lanes"):
-        lanes = lpc_lanes(w.order.T.reshape(L), w.mode.T.reshape(L), w.den.T.reshape(L),
-                          w.cb.T.reshape(L), w.ns.repeat(C),
-                          w.coefs.transpose(0, 1).reshape(L, 32))
-        taps = 32 if bool(((w.order >= 9) & (w.order <= 30)).any()) else 9
-    with stage("lpc"):
-        mix = lpc_fir(w.res, *lanes, F=F, taps=taps)[:F]
-    with stage("shift_reads"):
-        shift = (extract_shift(words, w.shift_base, w.bs, w.role, w.ns, F=F, C=C)
-                 if depth in (24, 32) else None)
-    with stage("epilogue"):
-        packed = finish_packed(mix, shift, w.bs, w.mixbits, w.mixres, w.role, w.out_chan,
-                               w.filled, C=C, depth=depth)
-    with stage("download"):
-        host, buf = impl._download(packed)
-    try:
-        with stage("trim"):
-            err, ns = w.err.cpu().numpy(), w.ns.cpu().numpy()
-            bad = [i for i in range(len(packets)) if err[i] != ERR_NONE]
-            fb = dict(zip(bad, _host_decode(c, [packets[i] for i in bad]))) if bad else {}
-            out = [fb[i] if i in fb else impl._to_bytes(host[i], int(ns[i]))
-                   for i in range(len(packets))]
-    finally:
-        impl._release(buf)
-    return out, packed.numel() * packed.element_size()
+    call = None
+    recording = False
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, value, tb) -> None:
+        return None
+
+
+_OFF = _Off()
+
+
+class Span:
+    """One recorded span: ``name``; ``start_ns`` and ``end_ns`` on the
+    profiler's clock; its ``id``, its ``parent``'s id (None at the top of
+    its thread), the ``call`` it belongs to (the id of the call's first
+    span; every span of one batch call shares it), the ``thread`` and
+    ``attrs``.  A site passes attributes that cost something to build only
+    where ``recording`` (`set`), so a span off builds none."""
+
+    __slots__ = ("name", "attrs", "id", "parent", "call", "thread", "start_ns", "end_ns", "_rf")
+    recording = True
+
+    def __init__(self, name: str, call: int | None, attrs: dict):
+        self.name, self.call, self.attrs = name, call, attrs
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> Span:
+        stack = _local.__dict__.setdefault("stack", [])
+        up = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = up.id if up else None
+        if self.call is None:
+            self.call = up.call if up else self.id
+        self.thread = threading.get_ident()
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        self._rf = torch.autograd.profiler.record_function(self.name)
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._rf.__exit__(*exc)
+        self.end_ns = time.time_ns()
+        self._rf = None
+        _local.stack.pop()
+        _ring.append(self)
+        return False
+
+    def __repr__(self) -> str:
+        return (f"Span({self.name!r}, id={self.id}, parent={self.parent}, call={self.call}, "
+                f"ms={(self.end_ns - self.start_ns) / 1e6:.3f}, attrs={self.attrs})")
+
+
+def span(name: str, call: int | None = None, **attrs):
+    """A span of ``name`` around a ``with`` block, recorded only while a
+    torch.profiler session records (else a shared context that does
+    nothing: ``.call`` is None and ``.recording`` False).  ``call``: the
+    batch call it belongs to, for a span that closes a call opened
+    elsewhere (`finish_async` takes its submit's); by default its
+    parent's, or a new call's at the top of a thread."""
+    if not _profiling():
+        return _OFF
+    return Span(name, call, attrs)
+
+
+def spans(start_ns: int | None = None, end_ns: int | None = None) -> list[Span]:
+    """The recorded spans that overlap [``start_ns``, ``end_ns``], by start."""
+    return sorted((s for s in _ring.copy()
+                   if (start_ns is None or s.end_ns >= start_ns)
+                   and (end_ns is None or s.start_ns <= end_ns)),
+                  key=lambda s: (s.start_ns, s.id))
+
+
+def clear_spans() -> None:
+    _ring.clear()
+
+
+def own_ns(recorded: list[Span]) -> dict[int, int]:
+    """Each span's own nanoseconds: its duration less its children's (a
+    thread's spans nest, so its children do not overlap)."""
+    own = {s.id: s.end_ns - s.start_ns for s in recorded}
+    for s in recorded:
+        if s.parent in own:
+            own[s.parent] -= s.end_ns - s.start_ns
+    return own
+
+
+@contextlib.contextmanager
+def stage_timer():
+    """Run the block under a CPU-activity torch.profiler session and yield a
+    `PhaseTimer`, filled when the block ends with each of `STAGES`' own
+    time (`own_ns`) over this thread's spans of the block, and
+    ``alac.batch.fallback``'s where the block recorded one.  A stage's
+    count is its spans' number.  No other profiler session may be open."""
+    from torch.profiler import ProfilerActivity, profile
+
+    timer, me = PhaseTimer(), threading.get_ident()
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        yield timer
+    mine = [s for s in spans(t0) if s.thread == me]
+    own = own_ns(mine)
+    names = STAGES + ((FALLBACK,) if any(s.name == FALLBACK for s in mine) else ())
+    for name in names:
+        of = [s for s in mine if s.name == name]
+        timer.phases[name] = sum(own[s.id] for s in of) / 1e9
+        timer.counts[name] = len(of)
 
 
 def profile_batch_decode(config, packets, iters: int = 3, device="cuda", tight: bool = False):
-    """Per-stage timing of the batch decode path on ``device``: one warm
-    call, then ``iters`` calls stage by stage (`decode_stages`), summed in
-    the timer.  Returns (PhaseTimer, the last call's bytes), so a caller
-    can hold the bytes against the source."""
+    """The host stages of the batch decode path on ``device``: two warm
+    calls (a key's first use runs eagerly, its second captures), then
+    ``iters`` calls of `decode_packets` as a caller makes them (on a card,
+    graph replays), timed by their spans (`stage_timer`).  Returns
+    (PhaseTimer, the last call's bytes), so a caller can hold the bytes
+    against the source."""
     from ..ops.batch import TorchBatchDecoder
 
     impl = TorchBatchDecoder(config, device, tight=tight)
-    decode_stages(impl, packets, PhaseTimer())  # warm: first launches build and load
-    timer = PhaseTimer()
+    for _ in range(2):
+        impl.decode_packets(packets)
     out = None
-    for _ in range(iters):
-        out, _ = decode_stages(impl, packets, timer)
+    with stage_timer() as timer:
+        for _ in range(iters):
+            out = impl.decode_packets(packets)
     return timer, out

@@ -1,9 +1,10 @@
 """The port's profiler (utils/profiling.py) and audio features
 (ops/audio.py) on the CPU, and examples/torch_pipeline.py --cpu.
 
-`PhaseTimer` accounts phases as the JAX package's does; `decode_stages` /
-`profile_batch_decode` time the decode path's stages (the names
-chip_smoke.py prints) and return the call's bytes, equal to the source;
+`PhaseTimer` accounts phases as the JAX package's does;
+`profile_batch_decode` times the decode path's host stages from their spans
+(the names chip_smoke.py prints; tests/test_torch_spans.py holds the spans)
+and returns the call's bytes, equal to the source;
 `device_trace` writes a Chrome trace.  `pcm_to_float`, `frame_energy` and
 `log_spectrogram` match the JAX package's functions within atol 1e-4
 (float32; the largest differences measured on these inputs, on a CPU, are
@@ -24,7 +25,6 @@ import jax.numpy as jnp
 from saprobe_alac_tpu.ops import audio as jax_audio
 import saprobe_alac_tpu_torch as port
 from saprobe_alac_tpu_torch.ops import audio
-from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
 from saprobe_alac_tpu_torch.utils import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,20 +55,6 @@ def test_profile_batch_decode_stages_and_bytes(tight):
     assert tuple(timer.phases) == profiling.STAGES
     assert all(n == 2 for n in timer.counts.values())
     assert b"".join(out) == pcm.astype("<i4").view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
-
-
-def test_decode_stages_host_fallback_and_download_bytes():
-    """A truncated packet decodes through the host path within ``trim`` and
-    raises the oracle's class, as the decoder does; a clean call reports
-    the bytes its download copied."""
-    cfg = port.PacketConfig(128, 16, 2, 40, 10, 14, 255, 0, 0, 44100)
-    packets = port.encode_packets(cfg, port.EncoderSpec(), music_pcm(256, 2, 16, seed=45),
-                                  backend="native")
-    impl = TorchBatchDecoder(cfg, "cpu")
-    out, nbytes = profiling.decode_stages(impl, packets, profiling.PhaseTimer())
-    assert out == impl.decode_packets(packets) and nbytes == 8 * 128 * 2 * 2
-    with pytest.raises(port.BitstreamOverrun):
-        profiling.decode_stages(impl, [packets[0][:9]], profiling.PhaseTimer())
 
 
 def test_device_trace_and_profile_call(tmp_path):
