@@ -1,11 +1,14 @@
-"""ctypes binding to the repo's C++ host core (native/alac_core.cpp and
-native/alac_encode.cpp), built by g++ into ``_build/`` at first use.
+"""ctypes binding to the repo's C++ host core (native/alac_core.cpp,
+alac_encode.cpp and alac_trim.cpp), built by g++ into ``_build/`` at first
+use.
 
 The port's host side: the threaded packer that stages a batch as big-endian
 words, the exact host decode (one packet, or a batch: the packets the device
-flags and the ``"native"`` backend), and the packet encoder (fixtures, and
-the host backend of `encoder.encode_packets`).  ``-fwrapv`` is required: the
-codec relies on wrapping int32 arithmetic as Go does.  A failed build raises.
+flags and the ``"native"`` backend), the packet encoder (fixtures, and
+the host backend of `encoder.encode_packets`), and the threaded trim of a
+large decoded batch's rows to ``bytes`` (`rows_to_bytes`).  ``-fwrapv`` is
+required: the codec relies on wrapping int32 arithmetic as Go does.  A
+failed build raises.
 """
 
 from __future__ import annotations
@@ -22,13 +25,13 @@ from .encoder.spec import ChannelSpec, EncoderSpec
 from .errors import UnsupportedSpec, core_error
 
 _NATIVE = Path(__file__).resolve().parents[1] / "native"
-_SOURCES = [_NATIVE / "alac_core.cpp", _NATIVE / "alac_encode.cpp"]
+_SOURCES = [_NATIVE / "alac_core.cpp", _NATIVE / "alac_encode.cpp", _NATIVE / "alac_trim.cpp"]
 
 #: Extra zero words past the longest packet, so reads past a packet's end
 #: see zeros (bitbuffer.go:28-32).
 GUARD_WORDS = 2
 
-_BYTES_PER_SAMPLE = {16: 2, 20: 3, 24: 3, 32: 4}
+BYTES_PER_SAMPLE = {16: 2, 20: 3, 24: 3, 32: 4}
 
 _lock = threading.Lock()
 _lib = None
@@ -73,6 +76,8 @@ def load():
         lib.alac_decode_batch.argtypes = [P, P, P, P, I32, P, I64, P, P, I32]
         lib.alac_encode_packet.restype = I32
         lib.alac_encode_packet.argtypes = [P, P, P, I32, P, I64]
+        lib.alac_copy_rows.restype = I32
+        lib.alac_copy_rows.argtypes = [P, I64, P, P, I32]
         _lib = lib
         return _lib
 
@@ -105,11 +110,49 @@ def pack_packets(packets: Sequence[bytes], rows: int, width: int) -> np.ndarray:
     return out.view(np.int32)
 
 
+# CPython's own constructor of a `bytes` left uninitialised, and its data
+# pointer, on prototypes of this module's own (the shared
+# `ctypes.pythonapi` attributes are left as they are); then the offset of a
+# `bytes` object's data from its address (`id`), the same for every one.
+_new_bytes = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_char_p, ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
+_bytes_data = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(
+    ("PyBytes_AsString", ctypes.pythonapi))
+_probe = _new_bytes(None, 1)
+if type(_probe) is not bytes:
+    raise TypeError(f"PyBytes_FromStringAndSize gave {type(_probe).__name__}")
+_DATA_OFFSET = _bytes_data(_probe) - id(_probe)
+del _probe
+
+
+def rows_to_bytes(rows: np.ndarray, lengths: np.ndarray) -> tuple[list[bytes], int]:
+    """Each row's first ``lengths[i]`` bytes as a `bytes` of its own (for a
+    length 0, ``b""``), and the number of threads that copied.  The objects
+    are made uninitialised under the GIL, then one call into the core fills
+    them all on OpenMP's threads with the GIL released.  ``rows``: a 2-D
+    array (copied first where not C-contiguous); ``lengths``: at most a
+    row's bytes."""
+    rows = np.ascontiguousarray(rows)
+    row_bytes = rows.shape[1] * rows.itemsize
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    if len(lengths) != len(rows) or (
+            len(rows) and not 0 <= lengths.min() <= lengths.max() <= row_bytes):
+        raise ValueError(f"lengths do not fit {len(rows)} rows of {row_bytes} bytes")
+    out = [_new_bytes(None, k) if k else b"" for k in lengths.tolist()]
+    # Nothing else holds these objects yet, and the core writes only their
+    # data, never a header, so it may run without the GIL; a length 0 (the
+    # shared b"") is skipped by the core, so nothing is written to it.
+    dst = np.array([id(b) + _DATA_OFFSET for b in out], dtype=np.uintp)
+    threads = load().alac_copy_rows(rows.ctypes.data, row_bytes, lengths.ctypes.data,
+                                    dst.ctypes.data, len(out))
+    return out, threads
+
+
 def decode_packet(config, packet: bytes) -> bytes:
     """One packet's interleaved LE PCM by the core (the counterpart of
     saprobe_alac_tpu.native.decode_packet); a packet the core rejects
     raises the class of its error code."""
-    cap = config.frame_length * config.num_channels * _BYTES_PER_SAMPLE[config.bit_depth]
+    cap = config.frame_length * config.num_channels * BYTES_PER_SAMPLE[config.bit_depth]
     out = np.empty(cap, dtype=np.uint8)
     out_len = ctypes.c_int32(0)
     code = load().alac_decode_packet(
@@ -125,7 +168,7 @@ def decode_batch(config, packets: Sequence[bytes]):
     """Threaded host decode: (out uint8 (B, stride), lens, errs); a nonzero
     err marks a packet the core rejected."""
     flat, offsets, sizes = _flat(packets)
-    stride = config.frame_length * config.num_channels * _BYTES_PER_SAMPLE[config.bit_depth]
+    stride = config.frame_length * config.num_channels * BYTES_PER_SAMPLE[config.bit_depth]
     out = np.zeros((len(packets), stride), dtype=np.uint8)
     lens = np.zeros(len(packets), dtype=np.int32)
     errs = np.zeros(len(packets), dtype=np.int32)

@@ -32,10 +32,13 @@ holding ``alac.batch.pack`` (`_host_stage`) and the program's
 around `finish_async`, holding ``alac.batch.download`` (the readbacks and
 the pinned copy; the 32-tap retry's submit inside it),
 ``alac.batch.fallback`` (error lanes on the host) and ``alac.batch.trim``
-(the ``bytes``).  Every span of a call shares its ``call`` id: the handle
-carries it from the submit to the finish.  The card's counters
-(`program.counts`) count ``calls``, ``packets``, ``fallback_packets`` and
-``wide_retries`` whether or not a profiler records.
+(the ``bytes``: from `NATIVE_TRIM_BYTES` in all one threaded call into the
+C++ core, `native.rows_to_bytes`, else `_to_bytes` a row; attributes
+``packets``, ``bytes`` and ``threads``).  Every span of a call
+shares its ``call`` id: the handle carries it from the submit to the
+finish.  The card's counters (`program.counts`) count ``calls``,
+``packets``, ``fallback_packets``, ``wide_retries`` and ``trim_bytes`` (the
+bytes the trim copied) whether or not a profiler records.
 """
 
 from __future__ import annotations
@@ -68,6 +71,14 @@ def _host_decode(config: PacketConfig, packets: Sequence[bytes]) -> list[bytes]:
         scalar_decode_packet(config, p)[0] if errs[i] else out[i, : lens[i]].tobytes()
         for i, p in enumerate(packets)
     ]
+
+
+#: From this many PCM bytes in a batch, `finish_async` trims in one call
+#: into the C++ core on OpenMP's threads (`native.rows_to_bytes`); below it,
+#: one row at a time here (`_to_bytes`), which costs no more at that size
+#: and pays no fork and join.  Chosen from a curve of both on an H100's
+#: 8-core host (PERF.md §6).
+NATIVE_TRIM_BYTES = 1 << 19
 
 
 def _bucket(n: int, floor: int = 8) -> int:
@@ -234,6 +245,8 @@ class TorchBatchDecoder:
         #: shape the device code (as the JAX jit's static arguments).
         self.statics = (config.frame_length, config.num_channels, config.bit_depth, config.pb,
                         config.mb, config.kb)
+        # Bytes of one sample of every channel in the PCM a packet returns.
+        self._frame_bytes = config.num_channels * native.BYTES_PER_SAMPLE[config.bit_depth]
 
     def _host_stage(self, packets: Sequence[bytes], rows: int | None = None) -> tuple:
         """The host arrays a batch uploads, ``rows`` rows (by default the
@@ -317,19 +330,9 @@ class TorchBatchDecoder:
         return _tagged(handle, s)
 
     def _to_bytes(self, packed_row: np.ndarray, ns: int) -> bytes:
-        """One packet's PCM from its finish_packed row (batch.py:348-364)."""
-        depth, C = self.config.bit_depth, self.config.num_channels
-        if depth == 16:
-            # Even channel counts: int32 words of two LE int16 samples each;
-            # odd ones: int16 samples.
-            return packed_row[: ns * C // 2 if C % 2 == 0 else ns * C].tobytes()
-        if depth in (20, 24):
-            nb = ns * C * 3
-            if (self.config.frame_length * C) % 4 == 0:
-                # Four 3-byte samples per three LE int32 words; trim to bytes.
-                return packed_row[: (nb + 3) // 4].tobytes()[:nb]
-            return packed_row[:nb].tobytes()
-        return packed_row[: ns * C].tobytes()
+        """One packet's PCM: the first ns * C * bytes-a-sample bytes of its
+        contiguous finish_packed row, in every layout (batch.py:348-364)."""
+        return packed_row.view(np.uint8)[: ns * self._frame_bytes].tobytes()
 
     def finish_async(self, handle, packets: Sequence[bytes]) -> list[bytes]:
         """Materialize a decode_async result into per-packet PCM bytes."""
@@ -347,17 +350,29 @@ class TorchBatchDecoder:
                 host, buf = self._download(packed)
             try:
                 fb_idx = np.flatnonzero(err[:n] != ERR_NONE).tolist()
-                fb = {}
+                fb = []
                 if fb_idx:
                     program.add_counts(self.device, fallback_packets=len(fb_idx))
                     with span(FALLBACK, packets=len(fb_idx)):
-                        fb = dict(zip(fb_idx, _host_decode(self.config,
-                                                           [packets[i] for i in fb_idx])))
-                with span(TRIM):
-                    out = [fb[i] if i in fb else self._to_bytes(host[i], int(ns[i]))
-                           for i in range(n)]
+                        fb = _host_decode(self.config, [packets[i] for i in fb_idx])
+                with span(TRIM) as t:
+                    rows = np.ascontiguousarray(host[:n])
+                    lengths = ns[:n].astype(np.int64) * self._frame_bytes
+                    lengths[fb_idx] = 0
+                    trimmed = int(lengths.sum())
+                    if trimmed >= NATIVE_TRIM_BYTES:
+                        out, threads = native.rows_to_bytes(rows, lengths)
+                    else:
+                        out = [self._to_bytes(rows[i], int(ns[i])) if k else b""
+                               for i, k in enumerate(lengths.tolist())]
+                        threads = 1
+                    for i, pcm in zip(fb_idx, fb):
+                        out[i] = pcm
+                    if t.recording:
+                        t.set(packets=n - len(fb_idx), bytes=trimmed, threads=threads)
             finally:
                 self._release(buf)
+        program.add_counts(self.device, trim_bytes=trimmed)
         with self._lock:
             self.last_fallbacks = len(fb_idx)
         return out

@@ -101,9 +101,10 @@ MAX_KEYS = 1024
 #: replays (a capture's own replay included), programs evicted, and bytes
 #: copied from the host into programs' inputs; then the batch layer's
 #: (`add_counts`): batch calls submitted (a sharded call: one a shard) and
-#: their packets, packets decoded on the host, and 32-tap retries.
+#: their packets, packets decoded on the host, 32-tap retries, and bytes
+#: the trim copied from the downloaded rows.
 _COUNTERS = ("programs", "eager", "captures", "replays", "evictions", "upload_bytes", "calls",
-             "packets", "fallback_packets", "wide_retries")
+             "packets", "fallback_packets", "wide_retries", "trim_bytes")
 
 _lock = threading.Lock()
 #: Every device's programs by key, least recently used first.

@@ -299,3 +299,33 @@ def test_spans_select_by_interval_and_own_time():
     assert own[outer.id] == (outer.end_ns - outer.start_ns) - (inner.end_ns - inner.start_ns)
     assert own[inner.id] == inner.end_ns - inner.start_ns
     assert profiling._ring.maxlen == profiling.RING == 1 << 20
+
+
+def test_trim_counts_the_device_decoded_bytes_and_records_its_threads():
+    """A lane the device declines: ``trim_bytes`` advances by the bytes of
+    the other lanes alone, and the recorded trim span carries the packets
+    and bytes it copied and the threads that copied them."""
+    cfg = _config()
+    pk = _packets(cfg, 4, seed=11)
+    dec = TorchBatchDecoder(cfg, "cpu")
+    want = dec.decode_packets(pk)
+    real = TorchBatchDecoder.finish_async
+
+    def one_error_lane(self, handle, packets):  # lane 1 flagged by the walk
+        packed, err, ns, wide = handle
+        err = err.clone()
+        err[1] = 1
+        return real(self, (packed, err, ns, wide), packets)
+
+    program.reset_counts()
+    try:
+        TorchBatchDecoder.finish_async = one_error_lane
+        out, rec = _recorded(lambda: dec.decode_packets(pk))
+    finally:
+        TorchBatchDecoder.finish_async = real
+    assert out == want
+    copied = sum(len(b) for i, b in enumerate(out) if i != 1)
+    (trim,) = [s for s in rec if s.name == "alac.batch.trim"]
+    assert trim.attrs == {"packets": 3, "bytes": copied, "threads": 1}
+    c = program.counts("cpu")
+    assert c["trim_bytes"] == copied > 0 and c["fallback_packets"] == 1
