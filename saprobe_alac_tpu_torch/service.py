@@ -28,9 +28,11 @@ import numpy as np
 
 from .config import PacketConfig
 from .decode import demux_stream
-from .decoder import BatchDecoder
+from .decoder import HOST_BACKENDS, BatchDecoder
 from .formats import PCMFormat
+from .ops import program
 from .utils.pcmconv import pcm_bytes_to_array
+from .utils.profiling import DEMUX, FLUSH, JOIN, span
 
 
 @dataclass
@@ -83,8 +85,18 @@ def iter_decode_corpus(
     as its last packet lands (completion order; ``DecodedFile.index`` gives
     the input position).  RAM stays bounded by the batching window — see the
     module docstring — so corpora far larger than host memory stream through.
+
+    Under a torch.profiler session it records, beside the batch calls' own
+    spans and never around them, ``alac.service.demux`` a file (the demux
+    and its packet reads; attributes ``packets``, ``bytes``),
+    ``alac.service.join`` a completed file (attribute ``bytes``) and one
+    ``alac.service.flush`` at the tail (taking the partial batches;
+    attribute ``batches``).  It counts ``files``, ``service_batches``,
+    ``partial_batches`` and ``groups`` in `program.counts` (the host
+    backends' under ``"cpu"``), whether or not a profiler records.
     """
     groups: dict[PacketConfig, _Group] = {}
+    counted = "cpu" if backend in HOST_BACKENDS else backend
 
     def finish_oldest(g: _Group):
         handle, pkts, states = g.inflight.popleft()
@@ -97,56 +109,93 @@ def iter_decode_corpus(
                 done.append(fs)
         return done
 
-    def dispatch(g: _Group, count: int):
-        """Move ``count`` pending packets into a dispatched batch; returns
-        any files completed while draining the in-flight window."""
+    def take(g: _Group, count: int) -> tuple[list, list]:
+        """The next ``count`` pending packets, and their files' states."""
         items = [g.pending.popleft() for _ in range(count)]
-        states = [fs for fs, _ in items]
-        pkts = [p for _, p in items]
+        return [p for _, p in items], [fs for fs, _ in items]
+
+    def dispatch(g: _Group, pkts: list, states: list):
+        """Dispatch a batch; returns any files completed while draining the
+        in-flight window."""
         g.inflight.append((g.decoder.decode_async(pkts), pkts, states))
+        program.add_counts(counted, service_batches=1,
+                           partial_batches=int(len(pkts) < batch_size))
         done = []
         while len(g.inflight) > inflight:
             done.extend(finish_oldest(g))
         return done
 
+    def joined(fs: _FileState) -> DecodedFile:
+        with span(JOIN) as s:
+            pcm = b"".join(fs.chunks)
+            if s.recording:
+                s.set(bytes=len(pcm))
+        program.add_counts(counted, files=1)
+        return DecodedFile(fs.name, fs.format, pcm, fs.index)
+
     for index, src in enumerate(sources):
         name, reader = _open_stream(src)
         try:
-            config, samples = demux_stream(reader)
-            fmt = PCMFormat(
-                sample_rate=config.sample_rate,
-                bit_depth=config.bit_depth,
-                channels=config.num_channels,
-            )
-            fs = _FileState(index, name, fmt, remaining=len(samples))
-            if config not in groups:
-                groups[config] = _Group(BatchDecoder(config, backend))
-            g = groups[config]
-            if not samples:
-                yield DecodedFile(name, fmt, b"", index)
-                continue
-            for info in samples:
-                reader.seek(info.offset)
-                data = reader.read(info.size)
-                if len(data) < info.size:
-                    raise EOFError(f"{name}: short packet read")
-                g.pending.append((fs, data))
-                if len(g.pending) >= batch_size:
-                    for d in dispatch(g, batch_size):
-                        yield DecodedFile(d.name, d.format, b"".join(d.chunks), d.index)
+            # The whole file's packets are read before any is queued, so no
+            # batch call runs inside the span.
+            with span(DEMUX) as s:
+                config, samples = demux_stream(reader)
+                packets = _read_packets(reader, name, samples)
+                if s.recording:
+                    s.set(packets=len(packets), bytes=sum(map(len, packets)))
         finally:
             if not hasattr(src, "read"):
                 reader.close()
+        fmt = PCMFormat(
+            sample_rate=config.sample_rate,
+            bit_depth=config.bit_depth,
+            channels=config.num_channels,
+        )
+        fs = _FileState(index, name, fmt, remaining=len(packets))
+        if config not in groups:
+            groups[config] = _Group(BatchDecoder(config, backend))
+            program.add_counts(counted, groups=1)
+        g = groups[config]
+        if not packets:
+            yield joined(fs)
+            continue
+        for data in packets:
+            g.pending.append((fs, data))
+            if len(g.pending) >= batch_size:
+                for d in dispatch(g, *take(g, batch_size)):
+                    yield joined(d)
+        del packets  # not held while the next file is read
 
     # Tail flush: dispatch remaining partial batches, drain every window.
-    for g in groups.values():
+    with span(FLUSH) as s:
+        tail = []
+        for g in groups.values():
+            batches = []
+            while g.pending:
+                batches.append(take(g, min(batch_size, len(g.pending))))
+            tail.append((g, batches))
+        if s.recording:
+            s.set(batches=sum(len(b) for _, b in tail))
+    for g, batches in tail:
         done = []
-        while g.pending:
-            done.extend(dispatch(g, min(batch_size, len(g.pending))))
+        for pkts, states in batches:
+            done.extend(dispatch(g, pkts, states))
         while g.inflight:
             done.extend(finish_oldest(g))
         for d in done:
-            yield DecodedFile(d.name, d.format, b"".join(d.chunks), d.index)
+            yield joined(d)
+
+
+def _read_packets(reader: BinaryIO, name: str, samples) -> list[bytes]:
+    """Each packet of the sample table, read from the container."""
+    packets = []
+    for info in samples:
+        reader.seek(info.offset)
+        data = reader.read(info.size)
+        if len(data) < info.size:
+            raise EOFError(f"{name}: short packet read")
+        packets.append(data)
+    return packets
 
 
 def decode_corpus(

@@ -9,7 +9,7 @@ holds the card back.
 
 A span records only while a torch.profiler session is recording in the
 process; otherwise it costs one check.  Recorded spans are named
-``alac.<layer>.<stage>`` (the batch and program layers' names are the
+``alac.<layer>.<stage>`` (the batch, program and service layers' names are the
 constants below, used at every site that records one), enter
 `record_function` under their name,
 so a Chrome trace shows them beside the card's work, and are kept in
@@ -39,6 +39,10 @@ DOWNLOAD, TRIM, FALLBACK = "alac.batch.download", "alac.batch.trim", "alac.batch
 #: The host stages of one batch call, in order, each recorded once a call
 #: (`stage_timer`); `FALLBACK` joins them in a call with error lanes.
 STAGES = (PACK, FILL, DISPATCH, DOWNLOAD, TRIM)
+#: The corpus service's own stages (service.py), never around a batch
+#: call's spans: a file's demux and packet reads, a completed file's join,
+#: and the tail flush's taking of the partial batches.
+DEMUX, JOIN, FLUSH = "alac.service.demux", "alac.service.join", "alac.service.flush"
 #: The most spans kept; older ones are dropped.
 RING = 1 << 20
 
