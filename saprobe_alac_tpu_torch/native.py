@@ -1,9 +1,11 @@
 """ctypes binding to the repo's C++ host core (native/alac_core.cpp,
-alac_encode.cpp and alac_trim.cpp), built by g++ into ``_build/`` at first
-use.
+alac_encode.cpp, alac_trim.cpp and alac_stage.cpp), built by g++ into
+``_build/`` at first use.
 
-The port's host side: the threaded packer that stages a batch as big-endian
-words, the exact host decode (one packet, or a batch: the packets the device
+The port's host side: the threaded packers that stage a batch as big-endian
+words (`pack_rows`, into a caller's reused buffer straight from the packets;
+`pack_packets`, into a fresh array from a joined copy, its reference), the
+exact host decode (one packet, or a batch: the packets the device
 flags and the ``"native"`` backend), the packet encoder (fixtures, and
 the host backend of `encoder.encode_packets`), and the threaded trim of a
 large decoded batch's rows to ``bytes`` (`rows_to_bytes`).  ``-fwrapv`` is
@@ -25,7 +27,8 @@ from .encoder.spec import ChannelSpec, EncoderSpec
 from .errors import UnsupportedSpec, core_error
 
 _NATIVE = Path(__file__).resolve().parents[1] / "native"
-_SOURCES = [_NATIVE / "alac_core.cpp", _NATIVE / "alac_encode.cpp", _NATIVE / "alac_trim.cpp"]
+_SOURCES = [_NATIVE / "alac_core.cpp", _NATIVE / "alac_encode.cpp", _NATIVE / "alac_trim.cpp",
+            _NATIVE / "alac_stage.cpp"]
 
 #: Extra zero words past the longest packet, so reads past a packet's end
 #: see zeros (bitbuffer.go:28-32).
@@ -70,6 +73,8 @@ def load():
         P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         lib.alac_pack_packets.restype = I32
         lib.alac_pack_packets.argtypes = [P, P, P, I32, I32, P]
+        lib.alac_pack_rows.restype = None
+        lib.alac_pack_rows.argtypes = [P, P, I32, I32, I32, P]
         lib.alac_decode_packet.restype = I32
         lib.alac_decode_packet.argtypes = [P, P, I32, P, I64, P]
         lib.alac_decode_batch.restype = I32
@@ -125,20 +130,69 @@ _DATA_OFFSET = _bytes_data(_probe) - id(_probe)
 del _probe
 
 
-def rows_to_bytes(rows: np.ndarray, lengths: np.ndarray) -> tuple[list[bytes], int]:
+def packet_lengths(packets: Sequence) -> np.ndarray:
+    """Each packet's length in bytes, int32: the one read of the sizes that
+    a batch's staging takes its widths, size_bits and `pack_rows` from."""
+    return np.fromiter(map(len, packets), dtype=np.int32, count=len(packets))
+
+
+def pack_rows(packets: Sequence, lengths: np.ndarray, out: np.ndarray) -> None:
+    """Write ``packets`` into ``out`` as `pack_packets` returns them:
+    (rows, width) words in big-endian bit order, zero past each packet and
+    in the rows past the last packet.  Every word of ``out`` is written, so
+    a reused buffer shows nothing of an earlier batch.  ``lengths`` must be
+    the packets' `packet_lengths` (the core reads that many bytes of each);
+    ``out``: a C-contiguous 2-D array of 4-byte words whose width covers the
+    longest packet plus GUARD_WORDS.
+
+    `bytes` packets are read in place on OpenMP's threads (their data
+    pointers, as `rows_to_bytes` finds them); a batch holding any other
+    buffer (memoryview, bytearray) is joined into one copy first."""
+    rows, width = out.shape
+    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+    if out.itemsize != 4 or not out.flags.c_contiguous or not out.flags.writeable:
+        raise ValueError("out must be a writeable C-contiguous array of 4-byte words")
+    if len(lengths) != len(packets) or len(packets) > rows or (
+            int(lengths.max(initial=0)) + 3) // 4 + GUARD_WORDS > width:
+        raise ValueError(f"{len(packets)} packets do not fit a ({rows}, {width}) batch")
+    if all(type(p) is bytes for p in packets):
+        # The caller's list holds the objects for the whole call.
+        ptrs = np.fromiter(map(id, packets), dtype=np.uintp, count=len(packets))
+        ptrs += _DATA_OFFSET
+    else:
+        flat, offsets, _ = _flat(packets)
+        ptrs = (offsets + flat.ctypes.data).astype(np.uintp)
+    load().alac_pack_rows(ptrs.ctypes.data, lengths.ctypes.data, len(packets), rows, width,
+                          out.ctypes.data)
+
+
+def rows_to_bytes(rows: np.ndarray, lengths: np.ndarray,
+                  spare: list | None = None) -> tuple[list[bytes], int]:
     """Each row's first ``lengths[i]`` bytes as a `bytes` of its own (for a
     length 0, ``b""``), and the number of threads that copied.  The objects
     are made uninitialised under the GIL, then one call into the core fills
     them all on OpenMP's threads with the GIL released.  ``rows``: a 2-D
     array (copied first where not C-contiguous); ``lengths``: at most a
-    row's bytes."""
+    row's bytes.
+
+    ``spare``: earlier outputs the caller gives up (the list is emptied).
+    One is dropped just before each object is made, so where nothing else
+    holds them, the memory they leave makes the new objects: pages already
+    faulted in, where a batch dropped all at once would have gone back to
+    the kernel (glibc returns the top of its heap) and faulted in anew."""
     rows = np.ascontiguousarray(rows)
     row_bytes = rows.shape[1] * rows.itemsize
     lengths = np.ascontiguousarray(lengths, dtype=np.int64)
     if len(lengths) != len(rows) or (
             len(rows) and not 0 <= lengths.min() <= lengths.max() <= row_bytes):
         raise ValueError(f"lengths do not fit {len(rows)} rows of {row_bytes} bytes")
-    out = [_new_bytes(None, k) if k else b"" for k in lengths.tolist()]
+    spare = spare if spare is not None else []
+    out = []
+    for k in lengths.tolist():
+        if spare:
+            spare.pop()
+        out.append(_new_bytes(None, k) if k else b"")
+    spare.clear()
     # Nothing else holds these objects yet, and the core writes only their
     # data, never a header, so it may run without the GIL; a length 0 (the
     # shared b"") is skipped by the core, so nothing is written to it.

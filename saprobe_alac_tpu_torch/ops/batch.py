@@ -19,15 +19,24 @@ depth, pb, mb and kb, and (rows, width, taps, staging).  A key's first use
 anywhere in the process runs eagerly, its second is captured as a CUDA
 graph, and every later one, from any decoder, is one graph replay.
 
-Staging is padded by default: the core packs each packet into a row of the
-batch's bucketed width.  ``tight=True`` uploads the packets back to back
-instead, each padded only to its own word, with their word offsets, and
-builds the padded rows on the device with one masked gather (batch.py:106-137,
-273-302): fewer bytes over the link, the same rows.
+Staging is padded by default: the C++ core packs each packet, read in
+place, into a row of the batch's bucketed width, in a staging buffer that
+the decoder reuses (page-locked on a card, so the program's fill is an
+asynchronous copy).  Each call in flight holds a buffer of its own from
+submit to finish, as each holds a download buffer; the decoder counts
+``staging_reuses`` and ``staging_allocs`` (`program.counts`).  The trim of
+a large batch makes its ``bytes`` as it lets go of the decoder's previous
+large batch's, so the memory a caller dropped is reused while its pages
+are still mapped.
+``tight=True`` uploads the packets back to back instead, each padded only
+to its own word, with their word offsets, and builds the padded rows on the
+device with one masked gather (batch.py:106-137, 273-302): fewer bytes over
+the link, the same rows.
 
 While a torch.profiler session records, a call records its host stages as
 spans (utils/profiling.py): ``alac.batch.submit`` around `decode_async`,
-holding ``alac.batch.pack`` (`_host_stage`) and the program's
+holding ``alac.batch.pack`` (`_host_stage`; attribute ``reused``: the
+padded rows went into a pooled buffer) and the program's
 ``alac.program.dispatch`` and ``alac.program.fill``; ``alac.batch.finish``
 around `finish_async`, holding ``alac.batch.download`` (the readbacks and
 the pinned copy; the 32-tap retry's submit inside it),
@@ -152,14 +161,15 @@ def _decode_tight(flat, starts, sizes, *, Wb, **core):
 
 def payload(host: tuple) -> tuple:
     """The host arrays a call uploads, from `TorchBatchDecoder._host_stage`'s
-    tuple: padded, (words (rows, W), size_bits); tight, (the flat buffer's
-    packet words, word offsets, size_bits).  The tight buffer's words past
+    tuple: padded, (words (rows, W), size_bits), views of the staging
+    buffer; tight, (the flat buffer's packet words, word offsets,
+    size_bits).  The tight buffer's words past
     the last packet are not uploaded: a row is zero at and past its packet's
     last word (`_tight_rows`), and padding rows have size 0, so no row
     reads them and the stale words a longer earlier call left there are
     never seen."""
-    if len(host) == 2:
-        return host
+    if len(host) == 3:
+        return host[:2]
     flat, starts, sizes, _ = host
     words = int(((sizes.astype(np.int64) + 31) >> 5).sum())
     return flat[:words], starts, sizes
@@ -169,18 +179,29 @@ def _program_key(host: tuple, taps: int) -> tuple:
     """A decode program's shape key from `_host_stage`'s tuple: (rows, W,
     taps, tight, flat words).  The tight buffer's capacity is the bucket of
     its size, so calls of one bucket share a program."""
-    if len(host) == 2:
-        words, _ = host
+    if len(host) == 3:
+        words = host[0]
         return (words.shape[0], words.shape[1], taps, False, 0)
     flat, _, sizes, Wb = host
     return (sizes.shape[0], Wb, taps, True, _bucket(flat.size))
 
 
 class _Handle(tuple):
-    """A handle made under a recorded span: the tuple, with the ``call`` id
-    its spans share."""
+    """A call's handle: the tuple, with the ``call`` id its spans share
+    (None where no span was recorded) and the staging buffer its upload
+    reads (None where it has none, or gave it back)."""
 
     call = None
+    staging = None
+
+
+def _staging(handle) -> torch.Tensor | None:
+    """Take ``handle``'s staging buffer out of it (None where it has none):
+    a handle finished twice gives its buffer back once."""
+    buf = getattr(handle, "staging", None)
+    if buf is not None:
+        handle.staging = None
+    return buf
 
 
 def _tagged(handle, recorded):
@@ -235,10 +256,20 @@ class TorchBatchDecoder:
         self._scalar_only = config.kb == 0 or not 1 <= config.frame_length <= (1 << 16)
         #: Packets of the batch that finished last that the host path decoded.
         self.last_fallbacks = 0
-        # Pinned download buffers not in use: each call in flight takes one
-        # of its own, so threads that share a decoder never share a buffer.
+        # Download and staging buffers not in use (pinned on a card): each
+        # call in flight takes one of each of its own, so threads that share
+        # a decoder never share a buffer.  A staging buffer comes back only
+        # after the download has waited for the call's upload; one whose
+        # handle is dropped unfinished is freed, and PyTorch's pinned
+        # allocator keeps it until the copies it recorded are done.
         self._pinned_free: list[torch.Tensor] = []
-        # Guards the pinned buffers' free list and last_fallbacks; never
+        self._staging_free: list[torch.Tensor] = []
+        # The last large trim's outputs, held until the next large trim
+        # makes its own in their memory (`native.rows_to_bytes`): a caller
+        # that drops each batch's bytes then finds its next batch's pages
+        # already faulted in.  At most one batch's PCM a decoder.
+        self._spare: list[bytes] = []
+        # Guards the free lists, the spare outputs and last_fallbacks; never
         # held while a program runs.
         self._lock = threading.Lock()
         #: The decode programs' static arguments: the config's fields that
@@ -250,20 +281,42 @@ class TorchBatchDecoder:
 
     def _host_stage(self, packets: Sequence[bytes], rows: int | None = None) -> tuple:
         """The host arrays a batch uploads, ``rows`` rows (by default the
-        bucket of its size): padded, (words (rows, W) big-endian, size_bits);
-        tight, (flat little-endian words, int32 word offsets, size_bits, Wb)."""
-        rows = rows or _bucket(len(packets))
+        bucket of its size), in an ``alac.batch.pack`` span: padded, (words
+        (rows, W) big-endian, size_bits), int32 tensors viewing one staging
+        buffer from the pool, then that buffer (`_submit` hands it to the
+        call's handle; a direct caller keeps it); tight, (flat little-endian
+        words, int32 word offsets, size_bits, Wb), numpy arrays of their own."""
+        with span(PACK) as p:
+            rows = rows or _bucket(len(packets))
+            lengths = native.packet_lengths(packets)
+            width = _bucket((int(lengths.max(initial=0)) + 3) // 4 + native.GUARD_WORDS,
+                            floor=16)
+            if self.tight:
+                return self._tight_stage(packets, lengths, rows, width)
+            words = rows * width
+            buf, reused = self._take(self._staging_free, 4 * (words + rows))
+            program.add_counts(self.device, staging_reuses=int(reused),
+                               staging_allocs=int(not reused))
+            if p.recording:
+                p.set(reused=reused)
+            # Tensor views, not numpy ones: a copy from them records its
+            # stream with the pinned allocator (see `__init__`).
+            packed = buf[: 4 * words].view(torch.int32).view(rows, width)
+            sizes = buf[4 * words : 4 * (words + rows)].view(torch.int32)
+            native.pack_rows(packets, lengths, packed.numpy())
+            bits = sizes.numpy()
+            np.multiply(lengths, 8, out=bits[: len(packets)])
+            bits[len(packets) :] = 0
+            return packed, sizes, buf
+
+    def _tight_stage(self, packets, lengths, rows, Wb) -> tuple:
+        """`_host_stage`'s tight arrays: each packet padded to its own
+        word, back to back (batch.py:273-302)."""
         sizes = np.zeros(rows, np.int32)
-        sizes[: len(packets)] = [len(p) * 8 for p in packets]
-        longest = max((len(p) for p in packets), default=0)
-        if not self.tight:
-            width = _bucket((longest + 3) // 4 + native.GUARD_WORDS, floor=16)
-            return native.pack_packets(packets, rows, width), sizes
-        # Each packet padded to its own word, back to back (batch.py:273-302).
-        wc = np.fromiter(((len(p) + 3) // 4 for p in packets), np.int64, count=len(packets))
+        sizes[: len(packets)] = lengths * 8
+        wc = (lengths.astype(np.int64) + 3) // 4
         offs = np.zeros(rows, np.int64)
         np.cumsum(wc[:-1], out=offs[1 : len(packets)])
-        Wb = _bucket((longest + 3) // 4 + native.GUARD_WORDS, floor=16)
         # A row gathers Wb words from its offset: size the buffer past the
         # last packet's slice of Wb words, so no row reads beyond it.  (The
         # program's buffer is the bucket of this size, as the JAX package's,
@@ -279,9 +332,9 @@ class TorchBatchDecoder:
         W), size_bits (rows,)), words big-endian as the walk reads them
         (tight staging: swapped and gathered on the device, `_tight_rows`)."""
         host = self._host_stage(packets, rows)
-        up = [torch.from_numpy(a).to(self.device) for a in host[:3]]
         if not self.tight:
-            return up[0], up[1]
+            return host[0].to(self.device), host[1].to(self.device)
+        up = [torch.from_numpy(a).to(self.device) for a in host[:3]]
         return _tight_rows(*up, host[3]), up[2]
 
     def _download(self, t: torch.Tensor) -> tuple[np.ndarray, torch.Tensor | None]:
@@ -293,18 +346,27 @@ class TorchBatchDecoder:
         if t.device.type == "cpu":
             return t.numpy(), None
         nbytes = t.numel() * t.element_size()
-        with self._lock:
-            buf = self._pinned_free.pop() if self._pinned_free else None
-        if buf is None or buf.numel() < nbytes:  # a free buffer too small is dropped
-            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        buf, _ = self._take(self._pinned_free, nbytes)
         view = buf[:nbytes].view(t.dtype).view(t.shape)
         view.copy_(t)
         return view.numpy(), buf
 
-    def _release(self, buf: torch.Tensor | None) -> None:
+    def _take(self, free: list, nbytes: int) -> tuple[torch.Tensor, bool]:
+        """A host buffer of at least ``nbytes`` bytes from the free list
+        ``free``, and True; else a new one (pinned on a card), and False.
+        A free buffer too small is dropped."""
+        with self._lock:
+            buf = free.pop() if free else None
+        if buf is not None and buf.numel() >= nbytes:
+            return buf, True
+        return torch.empty(nbytes, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda"), False
+
+    def _give(self, free: list, buf: torch.Tensor | None) -> None:
+        """Put ``buf`` (if any) back on the free list ``free``."""
         if buf is not None:
             with self._lock:
-                self._pinned_free.append(buf)
+                free.append(buf)
 
     def decode_async(self, packets: Sequence[bytes], taps: int = 9, rows: int | None = None):
         """Dispatch a batch through its key's process-wide program; returns
@@ -319,15 +381,17 @@ class TorchBatchDecoder:
     def _submit(self, packets: Sequence[bytes], taps: int, rows: int | None):
         """Stage a batch and run its key's program (``alac.batch.submit``)."""
         with span(SUBMIT) as s:
-            with span(PACK):
-                host = self._host_stage(packets, rows)
+            host = self._host_stage(packets, rows)
             shape = _program_key(host, taps)
             if s.recording:
                 s.set(packets=len(packets), card=self._card, taps=taps, rows=shape[0],
                       width=shape[1])
-            handle = program.run(self.device, "decode", self.statics, shape,
-                                 _decode_program(self.statics, shape), payload(host))
-        return _tagged(handle, s)
+            handle = _Handle(program.run(self.device, "decode", self.statics, shape,
+                                         _decode_program(self.statics, shape), payload(host)))
+        handle.call = s.call
+        if len(host) == 3:
+            handle.staging = host[2]
+        return handle
 
     def _to_bytes(self, packed_row: np.ndarray, ns: int) -> bytes:
         """One packet's PCM: the first ns * C * bytes-a-sample bytes of its
@@ -341,10 +405,13 @@ class TorchBatchDecoder:
             if s.recording:
                 s.set(packets=n, card=self._card)
             packed, err, ns, wide = handle
+            staged = [_staging(handle)]
             with span(DOWNLOAD):
                 if bool(wide[:n].any()):
                     program.add_counts(self.device, wide_retries=1)
-                    packed, err, ns, _ = self._submit(packets, 32, err.shape[0])
+                    retry = self._submit(packets, 32, err.shape[0])
+                    packed, err, ns, _ = retry
+                    staged.append(_staging(retry))
                 err = err.cpu().numpy()
                 ns = ns.cpu().numpy()
                 host, buf = self._download(packed)
@@ -361,7 +428,11 @@ class TorchBatchDecoder:
                     lengths[fb_idx] = 0
                     trimmed = int(lengths.sum())
                     if trimmed >= NATIVE_TRIM_BYTES:
-                        out, threads = native.rows_to_bytes(rows, lengths)
+                        with self._lock:
+                            spare, self._spare = self._spare, []
+                        out, threads = native.rows_to_bytes(rows, lengths, spare)
+                        with self._lock:
+                            self._spare = list(out)
                     else:
                         out = [self._to_bytes(rows[i], int(ns[i])) if k else b""
                                for i, k in enumerate(lengths.tolist())]
@@ -371,7 +442,11 @@ class TorchBatchDecoder:
                     if t.recording:
                         t.set(packets=n - len(fb_idx), bytes=trimmed, threads=threads)
             finally:
-                self._release(buf)
+                # The download waited for every earlier operation on the
+                # stream, the uploads from the staging buffers among them.
+                self._give(self._pinned_free, buf)
+                for b in staged:
+                    self._give(self._staging_free, b)
         program.add_counts(self.device, trim_bytes=trimmed)
         with self._lock:
             self.last_fallbacks = len(fb_idx)

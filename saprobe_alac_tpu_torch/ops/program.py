@@ -101,13 +101,14 @@ MAX_KEYS = 1024
 #: replays (a capture's own replay included), programs evicted, and bytes
 #: copied from the host into programs' inputs; then the batch layer's
 #: (`add_counts`): batch calls submitted (a sharded call: one a shard) and
-#: their packets, packets decoded on the host, 32-tap retries, and bytes
-#: the trim copied from the downloaded rows; then the corpus service's:
-#: files yielded, batches it dispatched, those of them under its batch
-#: size, and decoders it made (one a config group).
+#: their packets, packets decoded on the host, 32-tap retries, bytes the
+#: trim copied from the downloaded rows, and padded packs into a pooled
+#: staging buffer and into a new one; then the corpus service's: files
+#: yielded, batches it dispatched, those of them under its batch size, and
+#: decoders it made (one a config group).
 _COUNTERS = ("programs", "eager", "captures", "replays", "evictions", "upload_bytes", "calls",
-             "packets", "fallback_packets", "wide_retries", "trim_bytes", "files",
-             "service_batches", "partial_batches", "groups")
+             "packets", "fallback_packets", "wide_retries", "trim_bytes", "staging_reuses",
+             "staging_allocs", "files", "service_batches", "partial_batches", "groups")
 
 _lock = threading.Lock()
 #: Every device's programs by key, least recently used first.

@@ -45,7 +45,7 @@ class ShardedBatchDecoder(TorchBatchDecoder):
             raise ValueError("a sharded decoder needs at least one device")
         super().__init__(config, self.devices[0])
         # One single-device pipeline a shard, each with its own pinned
-        # download buffers.
+        # staging and download buffers.
         self._shards = [TorchBatchDecoder(config, d) for d in self.devices]
 
     def decode_async(self, packets: Sequence[bytes], taps: int = 9):

@@ -58,10 +58,10 @@ def test_warm_small_batch_single_dispatch(monkeypatch):
     assert b"".join(JaxBatchDecoder(cfg).decode_packets(pkts)) == want
 
     calls = {}
-    _count(monkeypatch, native, "pack_packets", calls)
+    _count(monkeypatch, native, "pack_rows", calls)
     _count(monkeypatch, program.Program, "run", calls)
     assert b"".join(dec.decode_packets(pkts)) == want
-    assert calls == {"pack_packets": 1, "run": 1}
+    assert calls == {"pack_rows": 1, "run": 1}
     (prog,) = program.programs("cpu")
     assert prog.uses == 2
     program.clear()

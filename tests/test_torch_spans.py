@@ -79,7 +79,7 @@ def _clean():
 
 def test_without_a_profiler_nothing_is_recorded(monkeypatch):
     """No profiler: no span is kept and `record_function` is never entered;
-    the handle is the plain tuple and the counters still count."""
+    the handle carries no call id and the counters still count."""
     entered = []
     monkeypatch.setattr(torch.autograd.profiler, "record_function",
                         lambda name: entered.append(name))
@@ -88,7 +88,7 @@ def test_without_a_profiler_nothing_is_recorded(monkeypatch):
     dec = TorchBatchDecoder(cfg, "cpu")
     program.reset_counts()
     handle = dec.decode_async(pk)
-    assert type(handle) is tuple
+    assert isinstance(handle, tuple) and handle.call is None
     assert dec.finish_async(handle, pk) == TorchBatchDecoder(cfg, "cpu").decode_packets(pk)
     with profiling.span("alac.test", k=1) as s:
         s.set(more=2)

@@ -13,6 +13,7 @@ decode of their packets, in place.
 
 import ctypes
 import functools
+import sys
 
 import numpy as np
 import pytest
@@ -116,8 +117,8 @@ def test_trim_matches_a_plain_slice(depth, channels, side, source, monkeypatch):
     threads = []
     fill = native.rows_to_bytes
 
-    def counted(r, lengths):
-        out, t = fill(r, lengths)
+    def counted(r, lengths, spare=None):
+        out, t = fill(r, lengths, spare)
         threads.append((t, int(lengths.sum())))
         return out, t
 
@@ -177,3 +178,43 @@ def test_rows_to_bytes_keeps_its_own_prototypes(monkeypatch):
     got, _ = native.rows_to_bytes(rows, np.array([20, 7]))
     assert got == [bytes(range(20)), bytes(range(20, 27))]
     assert all(type(b) is bytes for b in got)
+
+
+@pytest.mark.parametrize("spares", [0, 2, 3, 6])
+def test_rows_to_bytes_makes_its_outputs_as_it_drops_the_spares(spares):
+    """The spare outputs handed in are all let go (the list is emptied),
+    fewer or more than the new ones, and an earlier output the caller
+    still holds keeps its bytes; the new outputs are the rows' bytes."""
+    rows = np.arange(3 * 24, dtype=np.uint8).reshape(3, 24)
+    earlier, _ = native.rows_to_bytes(rows[::-1].copy(), np.array([24, 5, 24]))
+    held = earlier[0]
+    before = sys.getrefcount(held)
+    spare = (earlier * 2)[:spares]
+    del earlier
+    got, _ = native.rows_to_bytes(rows, np.array([24, 0, 9]), spare)
+    assert got == [bytes(range(24)), b"", bytes(range(48, 57))]
+    assert spare == [] and held == bytes(range(48, 72))
+    assert sys.getrefcount(held) == before - 1  # only this test holds it now
+
+
+def test_the_decoder_keeps_its_last_large_outputs_for_the_next():
+    """A trim from `NATIVE_TRIM_BYTES` keeps its outputs as the decoder's
+    spares, and the next such trim lets them go as it makes its own; a
+    caller that kept the earlier outputs still reads them unchanged.  A
+    smaller trim leaves the spares as they are."""
+    cfg = _config(16, 2)
+    n = batch.NATIVE_TRIM_BYTES // (4 * F) + 2
+    zero = torch.zeros(n, dtype=torch.int32)
+    ns = torch.full((n,), F, dtype=torch.int32)
+    dec = TorchBatchDecoder(cfg, "cpu")
+    first_rows, second_rows = _rows(16, 2, n, seed=1), _rows(16, 2, n, seed=2)
+    first = dec.finish_async((first_rows, zero, ns, zero.bool()), [b""] * n)
+    assert len(dec._spare) == n and all(a is b for a, b in zip(dec._spare, first))
+    kept = first[:3]
+    del first
+    second = dec.finish_async((second_rows, zero, ns, zero.bool()), [b""] * n)
+    assert all(a is b for a, b in zip(dec._spare, second))
+    assert second == [_slice(second_rows[k].numpy(), F, 16, 2) for k in range(n)]
+    assert kept == [_slice(first_rows[k].numpy(), F, 16, 2) for k in range(3)]
+    dec.finish_async((first_rows[:2], zero[:2], ns[:2], zero[:2].bool()), [b""] * 2)
+    assert all(a is b for a, b in zip(dec._spare, second))
