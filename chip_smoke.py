@@ -173,17 +173,17 @@ Phases, one line each (any failure raises and exits non-zero):
  21. the paths beside the main one (`new_paths_phase`), at the main paths'
      sizes, tolerance 0 on bytes, no host fallback on clean music, each path
      driven with the launch counts reset just before and read just after:
-     (a) phases 4's, 7's and 15's batches through TorchBatchDecoder(cfg,
-     tight=True): bytes equal to the padded path's and the source, one
-     launch of each path kernel a call; H2D bytes and decode_packets
-     (median of 5 warm runs) both ways; phase 3's ragged F=512 batch
-     (partial packet, escapes, orders 12 and 31, two corrupted packets):
-     the same error lanes, the same outcome, the other packets' bytes
-     equal; (b) ShardedBatchDecoder over [cuda:0, cuda:0], and over every
+     (a) phases 4's, 7's and 15's batches through TorchBatchDecoder(cfg):
+     bytes equal to the source, one launch of each path kernel a call; H2D
+     bytes and decode_packets (median of 5 warm runs); phase 3's ragged
+     F=512 batch (partial packet, escapes, orders 12 and 31, two corrupted
+     packets): two error lanes or more, the oracle's outcome on them, the
+     other packets' bytes equal to the host core's; (b)
+     ShardedBatchDecoder over [cuda:0, cuda:0], and over every
      card when there are several, on phase 4's and 15's batches and on
      B=2047: bytes equal to the source, each path kernel once a shard;
-     (c) utils.profiling.profile_batch_decode on phase 15's batch, padded
-     and tight, its bytes equal to the source (phases 12 and 15 profile
+     (c) utils.profiling.profile_batch_decode on phase 15's batch, its
+     bytes equal to the source (phases 12 and 15 profile
      their call, and phases 15 and 20 time their stages, with the same
      module); (d) phase 4's batch by decode_async, then pcm_to_float,
      log_spectrogram and frame_energy on the card, only the features
@@ -200,8 +200,8 @@ Phases, one line each (any failure raises and exits non-zero):
  22. the decode programs (`programs_phase`; every decode_async above runs
      through them: a key's first use eager, its second captured as a CUDA
      graph, later ones one replay): (a) on phases 4's, 7's and 15's batches
-     and phase 3's ragged batch (at 32 and 9 taps), padded and tight, the
-     third call on a key is one replay that runs no eager decode and counts
+     and phase 3's ragged batch (at 32 and 9 taps), the third call on a
+     key is one replay that runs no eager decode and counts
      its capture's launches once, and its packed, err, ns and wide equal
      `_decode_core`'s eager outputs on the same static inputs, byte for
      byte; bytes equal to the source, the ragged batch's error lanes and
@@ -988,7 +988,7 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
     from saprobe_alac_tpu_torch.encoder import EncoderSpec, encode_packets
     from saprobe_alac_tpu_torch.ops import audio, program
     from saprobe_alac_tpu_torch.ops.audio import frame_energy, log_spectrogram, pcm_to_float
-    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder, payload
+    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
     from saprobe_alac_tpu_torch.parallel import ShardedBatchDecoder
     from saprobe_alac_tpu_torch.utils.profiling import profile_batch_decode
 
@@ -1018,48 +1018,41 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
         except port.AlacError as exc:
             return type(exc).__name__
 
-    # ---- (a) tight staging against padded staging ----
+    # ---- (a) the main paths' batches and phase 3's ragged one ----
     lines = []
     for label, (c, pk, pcm) in batches.items():
-        tight, padded = TorchBatchDecoder(c, dev, tight=True), TorchBatchDecoder(c, dev)
+        dec = TorchBatchDecoder(c, dev)
         port.reset_launch_counts()
-        out = tight.decode_packets(pk)
-        launched(f"(a) {label} tight", "tight", c)
+        out = dec.decode_packets(pk)
+        launched(f"(a) {label}", "padded", c)
         check_decode(out, pcm, c.bit_depth)
-        if out != padded.decode_packets(pk):
-            raise AssertionError(f"phase 21 (a) {label}: tight bytes differ from padded")
-        clean(f"(a) {label}", tight, padded)
+        clean(f"(a) {label}", dec)
         del out
-        r = {}
-        for way, dec in (("padded", padded), ("tight", tight)):
-            r[f"{way}_h2d_bytes"] = sum(a.nbytes for a in payload(dec._host_stage(pk)))
-            r[f"{way}_s"] = summary(host_times(lambda: dec.decode_packets(pk), runs=runs))
-        res[f"tight_{label}"] = r
-        lines.append(
-            f"{label}: H2D bytes padded {r['padded_h2d_bytes']} / tight {r['tight_h2d_bytes']}; "
-            f"decode_packets median s padded {r['padded_s']['median']:.4f} / tight "
-            f"{r['tight_s']['median']:.4f}"
-        )
+        words, sizes, _ = dec._host_stage(pk)
+        r = {"h2d_bytes": words.nbytes + sizes.nbytes,
+             "s": summary(host_times(lambda: dec.decode_packets(pk), runs=runs))}
+        res[f"padded_{label}"] = r
+        lines.append(f"{label}: H2D bytes {r['h2d_bytes']}; decode_packets median s "
+                     f"{r['s']['median']:.4f}")
     c3, pk3 = ragged
-    tight, padded = TorchBatchDecoder(c3, dev, tight=True), TorchBatchDecoder(c3, dev)
-    ht, hp = tight.decode_async(pk3), padded.decode_async(pk3)
-    err_t, err_p = ht[1][: len(pk3)].cpu(), hp[1][: len(pk3)].cpu()
-    bad = torch.nonzero(err_t).flatten().tolist()
-    if not torch.equal(err_t, err_p) or len(bad) < 2:
-        raise AssertionError(f"phase 21 (a) ragged: error lanes {bad} tight, "
-                             f"{torch.nonzero(err_p).flatten().tolist()} padded")
-    got_t, got_p = outcome(lambda: tight.finish_async(ht, pk3)), outcome(
-        lambda: padded.finish_async(hp, pk3))
+    dec = TorchBatchDecoder(c3, dev)
+    h = dec.decode_async(pk3)
+    bad = torch.nonzero(h[1][: len(pk3)].cpu()).flatten().tolist()
+    if len(bad) < 2:
+        raise AssertionError(f"phase 21 (a) ragged: error lanes {bad}, want 2 or more")
+    got = outcome(lambda: dec.finish_async(h, pk3))
+    want = outcome(lambda: port.BatchDecoder(c3, "scalar").decode_packets([pk3[i] for i in bad]))
     good = [p for i, p in enumerate(pk3) if i not in bad]
-    if got_t != got_p or tight.decode_packets(good) != padded.decode_packets(good):
-        raise AssertionError("phase 21 (a) ragged: tight and padded decodes differ")
-    res["tight_ragged"] = {"packets": len(pk3), "error_lanes": bad,
-                           "outcome": got_t if isinstance(got_t, str) else "bytes"}
-    print(f"phase 21 {tag} (a) TorchBatchDecoder(cfg, tight=True): bytes == padded == source, "
-          f"launches 1 packet, 1 lpc (1 raw read at 24 bits) a call, host fallbacks 0; "
-          + "; ".join(lines) + f"; ragged F={c3.frame_length} B={len(pk3)} (partial packet, "
-          f"escapes, orders 12 and 31): error lanes {bad} in both, the same outcome "
-          f"({res['tight_ragged']['outcome']}), the {len(good)} other packets' bytes equal")
+    if (got if isinstance(got, str) else [got[i] for i in bad]) != want or dec.decode_packets(
+            good) != port.BatchDecoder(c3, "native").decode_packets(good):
+        raise AssertionError("phase 21 (a) ragged: the decode differs from the oracle's")
+    res["ragged"] = {"packets": len(pk3), "error_lanes": bad,
+                     "outcome": got if isinstance(got, str) else "bytes"}
+    print(f"phase 21 {tag} (a) TorchBatchDecoder(cfg): bytes == source, launches 1 packet, "
+          f"1 lpc (1 raw read at 24 bits) a call, host fallbacks 0; " + "; ".join(lines)
+          + f"; ragged F={c3.frame_length} B={len(pk3)} (partial packet, escapes, orders 12 "
+          f"and 31): error lanes {bad}, the oracle's outcome ({res['ragged']['outcome']}), the "
+          f"{len(good)} other packets' bytes == the host core's")
 
     # ---- (b) the packet-axis sharded decoder ----
     c4, pk4, pcm4 = batches["16-bit stereo"]
@@ -1088,16 +1081,14 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
 
     # ---- (c) the profiler on phase 15's batch ----
     c71, pk71, pcm71 = batches["7.1"]
-    for tight_ in (False, True):
-        way = "tight" if tight_ else "padded"
-        port.reset_launch_counts()
-        timer, out = profile_batch_decode(c71, pk71, iters=1, device=dev, tight=tight_)
-        launched(f"(c) profile_batch_decode {way}", "profiler", c71, per=3)  # 2 warm + 1
-        check_decode(out, pcm71, 24)
-        del out
-        res[f"profile_71_{way}_ms"] = timer.ms()
-    print(f"phase 21 {tag} (c) profile_batch_decode(7.1, iters=1), bytes == source, ms: padded "
-          f"{json.dumps(res['profile_71_padded_ms'])}; tight {json.dumps(res['profile_71_tight_ms'])}")
+    port.reset_launch_counts()
+    timer, out = profile_batch_decode(c71, pk71, iters=1, device=dev)
+    launched("(c) profile_batch_decode", "profiler", c71, per=3)  # 2 warm + 1
+    check_decode(out, pcm71, 24)
+    del out
+    res["profile_71_ms"] = timer.ms()
+    print(f"phase 21 {tag} (c) profile_batch_decode(7.1, iters=1), bytes == source, ms: "
+          f"{json.dumps(res['profile_71_ms'])}")
 
     # ---- (d) device-resident features of phase 4's batch ----
     dec = TorchBatchDecoder(c4, dev)
@@ -1333,8 +1324,8 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
     """Phase 22: the decode programs (ops/program.py) on the card.
     ``batches``: {label: (config, packets, source PCM)} for phase 4's,
     phase 7's and phase 15's batches ("16-bit stereo" among them);
-    ``ragged``: phase 3's (config, packets).  (a) On each batch, padded and
-    tight (the ragged one at 9 and 32 taps): the key's first use runs
+    ``ragged``: phase 3's (config, packets).  (a) On each batch (the
+    ragged one at 9 and 32 taps): the key's first use runs
     eagerly, the second captures, the third is one replay that calls no
     eager decode and counts its kernels once; the replay's four outputs
     equal `_decode_core`'s eager outputs on the same static inputs, byte
@@ -1348,7 +1339,7 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
     stream, share one decoder on phase 4's batch.  Raises on any
     difference.  Returns the phase's numbers."""
     from saprobe_alac_tpu_torch.ops import program
-    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder, _program_key
+    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
     from saprobe_alac_tpu_torch.ops.walk import ERR_NONE
 
     res = {"shapes": {}}
@@ -1357,7 +1348,7 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
 
     def program_of(dec, pk, taps=9):
         """The process-wide program that ``dec`` runs ``pk`` through."""
-        shape = _program_key(dec._host_stage(pk), taps)
+        shape = (*dec._host_stage(pk)[0].shape, taps)
         (prog,) = [p for p in program.programs(dev)
                    if (p.kind, p.statics, p.shape) == ("decode", dec.statics, shape)]
         return prog
@@ -1405,40 +1396,34 @@ def programs_phase(port, tag, dev, batches, ragged, runs=30):
     # ---- (a) replay against eager, byte for byte ----
     progs = {}
     for label, (c, pk, pcm) in batches.items():
-        for tight in (False, True):
-            name = f"{label} {'tight' if tight else 'padded'}"
-            dec = TorchBatchDecoder(c, dev, tight=tight)
-            prog, handle, _ = through_programs(name, dec, pk)
-            check_decode(dec.finish_async(handle, pk), pcm, c.bit_depth)
-            if dec.last_fallbacks:
-                raise AssertionError(f"phase 22 (a) {name}: host fallbacks on clean music")
-            progs[name] = (dec, prog, pk)
+        dec = TorchBatchDecoder(c, dev)
+        prog, handle, _ = through_programs(label, dec, pk)
+        check_decode(dec.finish_async(handle, pk), pcm, c.bit_depth)
+        if dec.last_fallbacks:
+            raise AssertionError(f"phase 22 (a) {label}: host fallbacks on clean music")
+        progs[label] = (dec, prog, pk)
     c3, pk3 = ragged
-    for tight in (False, True):
-        way = "tight" if tight else "padded"
-        dec = TorchBatchDecoder(c3, dev, tight=tight)
-        lanes = None
-        # 32 taps first: the 9-tap handle's finish_async re-runs at 32.
-        for taps in (32, 9):
-            name = f"ragged {way} taps {taps}"
-            prog, handle, eager = through_programs(name, dec, pk3, taps)
-            bad = torch.nonzero(handle[1][: len(pk3)] != ERR_NONE).flatten().tolist()
-            if len(bad) < 2 or (lanes is not None and bad != lanes):
-                raise AssertionError(f"phase 22 (a) {name}: error lanes {bad}")
-            lanes = bad
-            got = outcome(lambda: dec.finish_async(handle, pk3))
-            if got != outcome(lambda: dec.finish_async(eager, pk3)):
-                raise AssertionError(f"phase 22 (a) {name}: the outcome differs from eager")
-            progs[name] = (dec, prog, pk3)
-        res[f"ragged_{way}"] = {"error_lanes": lanes,
-                                "outcome": got if isinstance(got, str) else "bytes"}
+    dec = TorchBatchDecoder(c3, dev)
+    lanes = None
+    # 32 taps first: the 9-tap handle's finish_async re-runs at 32.
+    for taps in (32, 9):
+        name = f"ragged taps {taps}"
+        prog, handle, eager = through_programs(name, dec, pk3, taps)
+        bad = torch.nonzero(handle[1][: len(pk3)] != ERR_NONE).flatten().tolist()
+        if len(bad) < 2 or (lanes is not None and bad != lanes):
+            raise AssertionError(f"phase 22 (a) {name}: error lanes {bad}")
+        lanes = bad
+        got = outcome(lambda: dec.finish_async(handle, pk3))
+        if got != outcome(lambda: dec.finish_async(eager, pk3)):
+            raise AssertionError(f"phase 22 (a) {name}: the outcome differs from eager")
+        progs[name] = (dec, prog, pk3)
+    res["ragged"] = {"error_lanes": lanes, "outcome": got if isinstance(got, str) else "bytes"}
     print(f"phase 22 {tag} (a) programs: on phases 4, 7 and 15's B=2048 batches and phase 3's "
-          f"ragged batch (9 and 32 taps), padded and tight, the first use ran eagerly, the "
-          f"second captured, the third was one replay (launches = the capture's, replay 1, no "
-          f"eager decode) whose packed, err, ns and wide == _decode_core's eager outputs on the "
-          f"same static inputs; bytes == source, host fallbacks 0; ragged: error lanes "
-          f"{res['ragged_padded']['error_lanes']}, outcome {res['ragged_padded']['outcome']} "
-          f"== eager's")
+          f"ragged batch (9 and 32 taps), the first use ran eagerly, the second captured, the "
+          f"third was one replay (launches = the capture's, replay 1, no eager decode) whose "
+          f"packed, err, ns and wide == _decode_core's eager outputs on the same static "
+          f"inputs; bytes == source, host fallbacks 0; ragged: error lanes "
+          f"{res['ragged']['error_lanes']}, outcome {res['ragged']['outcome']} == eager's")
 
     # ---- (b) each shape: capture, pool, kernels a replay against an eager call ----
     fns = {}
@@ -1834,7 +1819,7 @@ def main() -> int:
         bad1[i] ^= 1 << int(rng.integers(0, 8))
     pk += [bad0, bytes(bad1)]
     assert len(pk) == 256
-    ragged3 = (cfg3, pk)  # phase 21 stages it tight
+    ragged3 = (cfg3, pk)  # phases 21 and 22 decode it whole
     words, sizes = stager._stage(pk)
     B = words.shape[0]
     w = walk(cfg3, words, sizes)
@@ -2927,7 +2912,7 @@ def main() -> int:
     res20["phase_s"] = time.perf_counter() - t20
     print(f"phase 20 {tag} numbers: {json.dumps(res20)}")
 
-    # ---- phase 21: tight staging, sharding, the profiler, features, host backends ----
+    # ---- phase 21: the ragged batch, sharding, the profiler, features, host backends ----
     t21 = time.perf_counter()
     main_batches = {"16-bit stereo": (cfg, pkts, pcm), "96 kHz 24-bit stereo": (hcfg, hpkts, hpcm),
                     "7.1": (scfg, spkts, spcm)}

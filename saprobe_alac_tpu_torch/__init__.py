@@ -6,9 +6,9 @@ JAX package's: the streaming ``Decoder`` (`new_decoder`, `read`, `seek`,
 `decode_file`, the corpus service (`decode_corpus`, `iter_decode_corpus`),
 `parse_magic_cookie`, `PacketDecoder` and the batch API
 `BatchDecoder.decode_packets` for 16-, 20-, 24- and 32-bit streams of
-C = 1..8 channels in every element layout, with tight staging
-(`TorchBatchDecoder(cfg, tight=True)`) and packet-axis sharding over every
-card (`ShardedBatchDecoder`, parallel/); the encoder
+C = 1..8 channels in every element layout, with packet-axis sharding over
+every card (`ShardedBatchDecoder`, parallel/: one `TorchBatchDecoder` a
+card); the encoder
 (`encoder.encode_packets`, `encode_to_m4a`, `build_m4a`, `build_caf`); the
 CLI (`python -m saprobe_alac_tpu_torch.cli`); the stage profiler
 (utils/profiling.py) and audio features on the card (ops/audio.py).  Every Pallas kernel of

@@ -15,23 +15,19 @@ As the JAX package compiles one executable per (config statics, batch
 bucket, width bucket, taps) and every decoder of the process reuses it
 (batch.py:78-138), the device part of a call, `_decode_core`, runs through
 the process-wide program of its key (ops/program.py): the config's F, C,
-depth, pb, mb and kb, and (rows, width, taps, staging).  A key's first use
+depth, pb, mb and kb, and (rows, width, taps).  A key's first use
 anywhere in the process runs eagerly, its second is captured as a CUDA
 graph, and every later one, from any decoder, is one graph replay.
 
-Staging is padded by default: the C++ core packs each packet, read in
-place, into a row of the batch's bucketed width, in a staging buffer that
-the decoder reuses (page-locked on a card, so the program's fill is an
-asynchronous copy).  Each call in flight holds a buffer of its own from
-submit to finish, as each holds a download buffer; the decoder counts
+Staging: the C++ core packs each packet, read in place, into a row of the
+batch's bucketed width, in a staging buffer that the decoder reuses
+(page-locked on a card, so the program's fill is an asynchronous copy).
+Each call in flight holds a buffer of its own from submit to finish, as
+each holds a download buffer; the decoder counts
 ``staging_reuses`` and ``staging_allocs`` (`program.counts`).  The trim of
 a large batch makes its ``bytes`` as it lets go of the decoder's previous
 large batch's, so the memory a caller dropped is reused while its pages
 are still mapped.
-``tight=True`` uploads the packets back to back instead, each padded only
-to its own word, with their word offsets, and builds the padded rows on the
-device with one masked gather (batch.py:106-137, 273-302): fewer bytes over
-the link, the same rows.
 
 While a torch.profiler session records, a call records its host stages as
 spans (utils/profiling.py): ``alac.batch.submit`` around `decode_async`,
@@ -101,21 +97,6 @@ def _bucket(n: int, floor: int = 8) -> int:
         b *= 2
 
 
-def _byteswap(w: torch.Tensor) -> torch.Tensor:
-    """Little- <-> big-endian int32 words, on their device (batch.py:66-75)."""
-    return ((w >> 24) & 0xFF) | ((w >> 8) & 0xFF00) | ((w & 0xFF00) << 8) | (w << 24)
-
-
-def _tight_rows(flat, starts, sizes, Wb):
-    """The padded rows (B, Wb) from a tight buffer of little-endian words:
-    swapped once to big-endian and gathered from each row's word offset,
-    zero at and past ceil(size_bits / 32), so a row reads zeros past its
-    packet as the padded rows' guard words give (batch.py:106-137)."""
-    col = torch.arange(Wb, dtype=torch.int32, device=flat.device)
-    words = _byteswap(flat)[starts[:, None] + col[None, :]]
-    return torch.where(col[None, :] < ((sizes + 31) >> 5)[:, None], words, 0)
-
-
 def _decode_core(words, sizes, *, F, C, depth, pb, mb, kb, taps, offsets):
     """The device part of a batch decode, from the staged rows (B, W) of
     big-endian words and their size_bits to (packed, err, ns, wide)
@@ -153,43 +134,10 @@ def _decode_core(words, sizes, *, F, C, depth, pb, mb, kb, taps, offsets):
     return packed, w.err, w.ns, wide
 
 
-def _decode_tight(flat, starts, sizes, *, Wb, **core):
-    """`_decode_core` on the rows of a tight buffer (`_tight_rows`), as the
-    JAX package's `_decode_batch_tight` wraps its core."""
-    return _decode_core(_tight_rows(flat, starts, sizes, Wb), sizes, **core)
-
-
-def payload(host: tuple) -> tuple:
-    """The host arrays a call uploads, from `TorchBatchDecoder._host_stage`'s
-    tuple: padded, (words (rows, W), size_bits), views of the staging
-    buffer; tight, (the flat buffer's packet words, word offsets,
-    size_bits).  The tight buffer's words past
-    the last packet are not uploaded: a row is zero at and past its packet's
-    last word (`_tight_rows`), and padding rows have size 0, so no row
-    reads them and the stale words a longer earlier call left there are
-    never seen."""
-    if len(host) == 3:
-        return host[:2]
-    flat, starts, sizes, _ = host
-    words = int(((sizes.astype(np.int64) + 31) >> 5).sum())
-    return flat[:words], starts, sizes
-
-
-def _program_key(host: tuple, taps: int) -> tuple:
-    """A decode program's shape key from `_host_stage`'s tuple: (rows, W,
-    taps, tight, flat words).  The tight buffer's capacity is the bucket of
-    its size, so calls of one bucket share a program."""
-    if len(host) == 3:
-        words = host[0]
-        return (words.shape[0], words.shape[1], taps, False, 0)
-    flat, _, sizes, Wb = host
-    return (sizes.shape[0], Wb, taps, True, _bucket(flat.size))
-
-
 class _Handle(tuple):
     """A call's handle: the tuple, with the ``call`` id its spans share
     (None where no span was recorded) and the staging buffer its upload
-    reads (None where it has none, or gave it back)."""
+    reads (None once given back)."""
 
     call = None
     staging = None
@@ -204,41 +152,25 @@ def _staging(handle) -> torch.Tensor | None:
     return buf
 
 
-def _tagged(handle, recorded):
-    """``handle``, carrying ``recorded``'s call id where the span was
-    recorded (a `_Handle`), else as it is."""
-    if recorded.call is None:
-        return handle
-    out = _Handle(handle)
-    out.call = recorded.call
-    return out
-
-
 def _decode_program(statics: tuple, shape: tuple):
     """``make`` of the decode program of ``statics`` (F, C, depth, pb, mb,
-    kb) and ``shape`` (`_program_key`): its core, with the channel layout's
+    kb) and ``shape`` (rows, W, taps): its core, with the channel layout's
     offsets built on its device, and its static inputs."""
     F, C, depth, pb, mb, kb = statics
-    rows, W, taps, tight, flat_words = shape
+    rows, W, taps = shape
 
     def make(device):
-        kw = dict(F=F, C=C, depth=depth, pb=pb, mb=mb, kb=kb, taps=taps,
-                  offsets=channel_offsets(C, device))
-        core = partial(_decode_tight, Wb=W, **kw) if tight else partial(_decode_core, **kw)
-        shapes = [(flat_words,), (rows,), (rows,)] if tight else [(rows, W), (rows,)]
-        return core, [(s, torch.int32) for s in shapes]
+        core = partial(_decode_core, F=F, C=C, depth=depth, pb=pb, mb=mb, kb=kb, taps=taps,
+                       offsets=channel_offsets(C, device))
+        return core, [((rows, W), torch.int32), ((rows,), torch.int32)]
 
     return make
 
 
 class TorchBatchDecoder:
-    """Device-batched packet decoding for one PacketConfig on one device.
+    """Device-batched packet decoding for one PacketConfig on one device."""
 
-    ``tight``: stage the packets back to back and build the padded rows on
-    the device (off by default, as in the JAX package); the bytes are the
-    same either way."""
-
-    def __init__(self, config: PacketConfig, device="cuda", tight: bool = False):
+    def __init__(self, config: PacketConfig, device="cuda"):
         if config.bit_depth not in (16, 20, 24, 32):
             raise UnsupportedBitDepth(f"unsupported bit depth {config.bit_depth}")
         if not 1 <= config.num_channels <= 8:
@@ -250,7 +182,6 @@ class TorchBatchDecoder:
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
         self.config = config
-        self.tight = tight
         # kb == 0 relies on Go uint32 bit-position wrap, and absurd frame
         # lengths would blow device memory: such streams go to the host.
         self._scalar_only = config.kb == 0 or not 1 <= config.frame_length <= (1 << 16)
@@ -281,18 +212,15 @@ class TorchBatchDecoder:
 
     def _host_stage(self, packets: Sequence[bytes], rows: int | None = None) -> tuple:
         """The host arrays a batch uploads, ``rows`` rows (by default the
-        bucket of its size), in an ``alac.batch.pack`` span: padded, (words
-        (rows, W) big-endian, size_bits), int32 tensors viewing one staging
-        buffer from the pool, then that buffer (`_submit` hands it to the
-        call's handle; a direct caller keeps it); tight, (flat little-endian
-        words, int32 word offsets, size_bits, Wb), numpy arrays of their own."""
+        bucket of its size), in an ``alac.batch.pack`` span: (words (rows, W)
+        big-endian, size_bits), int32 tensors viewing one staging buffer
+        from the pool, then that buffer (`_submit` hands it to the call's
+        handle; a direct caller keeps it)."""
         with span(PACK) as p:
             rows = rows or _bucket(len(packets))
             lengths = native.packet_lengths(packets)
             width = _bucket((int(lengths.max(initial=0)) + 3) // 4 + native.GUARD_WORDS,
                             floor=16)
-            if self.tight:
-                return self._tight_stage(packets, lengths, rows, width)
             words = rows * width
             buf, reused = self._take(self._staging_free, 4 * (words + rows))
             program.add_counts(self.device, staging_reuses=int(reused),
@@ -309,42 +237,21 @@ class TorchBatchDecoder:
             bits[len(packets) :] = 0
             return packed, sizes, buf
 
-    def _tight_stage(self, packets, lengths, rows, Wb) -> tuple:
-        """`_host_stage`'s tight arrays: each packet padded to its own
-        word, back to back (batch.py:273-302)."""
-        sizes = np.zeros(rows, np.int32)
-        sizes[: len(packets)] = lengths * 8
-        wc = (lengths.astype(np.int64) + 3) // 4
-        offs = np.zeros(rows, np.int64)
-        np.cumsum(wc[:-1], out=offs[1 : len(packets)])
-        # A row gathers Wb words from its offset: size the buffer past the
-        # last packet's slice of Wb words, so no row reads beyond it.  (The
-        # program's buffer is the bucket of this size, as the JAX package's,
-        # but only the packets' words are uploaded: `payload`.)
-        last = int(offs[len(packets) - 1]) if packets else 0
-        flat = np.zeros(4 * max(int(wc.sum()) + native.GUARD_WORDS, last + Wb), np.uint8)
-        for p, o in zip(packets, (4 * offs[: len(packets)]).tolist()):
-            flat[o : o + len(p)] = np.frombuffer(p, np.uint8)
-        return flat.view(np.int32), offs.astype(np.int32), sizes, Wb
-
     def _stage(self, packets: Sequence[bytes], rows: int | None = None):
         """Stage a batch on the device, outside any program: (words (rows,
-        W), size_bits (rows,)), words big-endian as the walk reads them
-        (tight staging: swapped and gathered on the device, `_tight_rows`)."""
-        host = self._host_stage(packets, rows)
-        if not self.tight:
-            return host[0].to(self.device), host[1].to(self.device)
-        up = [torch.from_numpy(a).to(self.device) for a in host[:3]]
-        return _tight_rows(*up, host[3]), up[2]
+        W), size_bits (rows,)), words big-endian as the walk reads them."""
+        words, sizes, _ = self._host_stage(packets, rows)
+        return words.to(self.device), sizes.to(self.device)
 
     def _download(self, t: torch.Tensor) -> tuple[np.ndarray, torch.Tensor | None]:
         """Device -> host through a pinned buffer: on an H100 a pageable copy
         of a B=2048 F=4096 stereo batch (32 MiB) took 14 ms, a pinned one
-        0.65 ms.  Returns (host view, its buffer); the view stays valid until
-        the buffer goes back through `_release`.  Buffers are reused across
-        calls, one to each call in flight, so threads may share a decoder."""
+        0.65 ms.  Returns (C-contiguous host view, its buffer); the view
+        stays valid until the buffer goes back through `_give`.  Buffers are
+        reused across calls, one to each call in flight, so threads may
+        share a decoder."""
         if t.device.type == "cpu":
-            return t.numpy(), None
+            return t.contiguous().numpy(), None
         nbytes = t.numel() * t.element_size()
         buf, _ = self._take(self._pinned_free, nbytes)
         view = buf[:nbytes].view(t.dtype).view(t.shape)
@@ -381,16 +288,14 @@ class TorchBatchDecoder:
     def _submit(self, packets: Sequence[bytes], taps: int, rows: int | None):
         """Stage a batch and run its key's program (``alac.batch.submit``)."""
         with span(SUBMIT) as s:
-            host = self._host_stage(packets, rows)
-            shape = _program_key(host, taps)
+            words, sizes, staging = self._host_stage(packets, rows)
+            shape = (*words.shape, taps)
             if s.recording:
                 s.set(packets=len(packets), card=self._card, taps=taps, rows=shape[0],
                       width=shape[1])
             handle = _Handle(program.run(self.device, "decode", self.statics, shape,
-                                         _decode_program(self.statics, shape), payload(host)))
-        handle.call = s.call
-        if len(host) == 3:
-            handle.staging = host[2]
+                                         _decode_program(self.statics, shape), (words, sizes)))
+        handle.call, handle.staging = s.call, staging
         return handle
 
     def _to_bytes(self, packed_row: np.ndarray, ns: int) -> bytes:
@@ -423,7 +328,7 @@ class TorchBatchDecoder:
                     with span(FALLBACK, packets=len(fb_idx)):
                         fb = _host_decode(self.config, [packets[i] for i in fb_idx])
                 with span(TRIM) as t:
-                    rows = np.ascontiguousarray(host[:n])
+                    rows = host[:n]
                     lengths = ns[:n].astype(np.int64) * self._frame_bytes
                     lengths[fb_idx] = 0
                     trimmed = int(lengths.sum())

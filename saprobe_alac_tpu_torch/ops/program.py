@@ -2,9 +2,9 @@
 captured CUDA graph, one a key, under a memory budget.
 
 Counterpart of the JAX package's module-level `jax.jit` executables (the
-batch decode's `_decode_batch` and `_decode_batch_tight`,
-saprobe_alac_tpu/ops/batch.py:78-138; `encode_walk`, ops/encode_device.py:
-455-470; the audio features, ops/audio.py:16, 29, 39): XLA compiles one
+batch decode's `_decode_batch`, saprobe_alac_tpu/ops/batch.py:78-138;
+`encode_walk`, ops/encode_device.py:455-470; the audio features,
+ops/audio.py:16, 29, 39): XLA compiles one
 executable per (static arguments, shapes) and every caller in the process
 reuses it.  Here a `Program` holds one key's input tensors on its device
 and, on a CUDA device, one `torch.cuda.CUDAGraph` of its core (a pure
@@ -157,24 +157,25 @@ class Program:
         or "replay").  The caller holds the lock."""
         self.uses += 1
         self.uploaded = 0
+        sources = [torch.from_numpy(s) if isinstance(s, np.ndarray) else s for s in sources]
         if self.uses == 1:
             return tuple(self.core(*self._staged(sources))), ("eager",)
         if self.device.type != "cuda":
             if self.inputs is None:
                 self._allocate()
-            self._fill(sources)
+            self._fill(self.inputs, sources)
             return tuple(t.clone() for t in self.core(*self.inputs)), ("eager",)
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device)
             ran = ("replay",)
             if self.graph is None:
                 self._allocate()
-                self._fill(sources)
+                self._fill(self.inputs, sources)
                 self._capture()
                 ran = ("capture", "replay")
             else:
                 stream.wait_event(self._done)
-                self._fill(sources)
+                self._fill(self.inputs, sources)
             self.graph.replay()
             for name, n in self.launches.items():
                 _build.count_launch(name, n)
@@ -183,25 +184,15 @@ class Program:
             self._done.record(stream)
         return out, ran
 
-    def _staged(self, sources: Sequence) -> list[torch.Tensor]:
+    def _staged(self, sources: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """The first use's inputs: a source that is already a tensor of its
         input's shape, dtype and device as it is, any other copied into the
         leading rows of a zeroed tensor."""
-        staged = []
-        with span(FILL) as s:
-            for (shape, dtype), src in zip(self.specs, sources):
-                if isinstance(src, np.ndarray):
-                    src = torch.from_numpy(src)
-                if tuple(src.shape) == shape and src.dtype == dtype and src.device == self.device:
-                    staged.append(src)
-                    continue
-                t = torch.zeros(shape, dtype=dtype, device=self.device)
-                t[: len(src)].copy_(src, non_blocking=True)
-                staged.append(t)
-                self.uploaded += _host_bytes(src)
-            if s.recording:
-                s.set(bytes=self.uploaded)
-        return staged
+        inputs = [src if (tuple(src.shape), src.dtype, src.device) == (shape, dtype, self.device)
+                  else torch.zeros(shape, dtype=dtype, device=self.device)
+                  for (shape, dtype), src in zip(self.specs, sources)]
+        self._fill(inputs, sources)
+        return inputs
 
     def _allocate(self) -> None:
         """The static inputs, zeroed, on the caller's current stream (a
@@ -210,16 +201,17 @@ class Program:
         if self.device.type == "cuda":
             self._done = torch.cuda.Event()
 
-    def _fill(self, sources: Sequence) -> None:
+    def _fill(self, inputs: Sequence[torch.Tensor], sources: Sequence[torch.Tensor]) -> None:
+        """Copy each source into the leading rows of its input (a source
+        that is its input is left as it is), counting the host's bytes."""
         # Non-blocking: a copy from pageable memory returns once CUDA has
         # staged the host bytes, without waiting for the stream's earlier
         # work, so the lock is held for the enqueue alone.
         with span(FILL) as s:
-            for dst, src in zip(self.inputs, sources):
-                if isinstance(src, np.ndarray):
-                    src = torch.from_numpy(src)
-                dst[: len(src)].copy_(src, non_blocking=True)
-                self.uploaded += _host_bytes(src)
+            for dst, src in zip(inputs, sources):
+                if dst is not src:
+                    dst[: len(src)].copy_(src, non_blocking=True)
+                    self.uploaded += _host_bytes(src)
             if s.recording:
                 s.set(bytes=self.uploaded)
 

@@ -263,7 +263,7 @@ def stage_timer():
         timer.counts[name] = len(of)
 
 
-def profile_batch_decode(config, packets, iters: int = 3, device="cuda", tight: bool = False):
+def profile_batch_decode(config, packets, iters: int = 3, device="cuda"):
     """The host stages of the batch decode path on ``device``: two warm
     calls (a key's first use runs eagerly, its second captures), then
     ``iters`` calls of `decode_packets` as a caller makes them (on a card,
@@ -272,7 +272,7 @@ def profile_batch_decode(config, packets, iters: int = 3, device="cuda", tight: 
     against the source."""
     from ..ops.batch import TorchBatchDecoder
 
-    impl = TorchBatchDecoder(config, device, tight=tight)
+    impl = TorchBatchDecoder(config, device)
     for _ in range(2):
         impl.decode_packets(packets)
     out = None

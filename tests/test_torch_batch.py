@@ -213,7 +213,7 @@ def test_cuda_device_raises_without_cuda():
 
 def test_default_device_is_cuda():
     dec = BatchDecoder.__init__.__defaults__, TorchBatchDecoder.__init__.__defaults__
-    assert dec == (("cuda",), ("cuda", False))  # TorchBatchDecoder's second: tight
+    assert dec == (("cuda",), ("cuda",))
     if torch.cuda.is_available():
         assert BatchDecoder(make_config(frame_length=F)).impl.device.type == "cuda"
     else:
@@ -273,9 +273,9 @@ def test_port_decodes_with_jax_blocked():
 def test_new_modules_run_with_jax_blocked():
     """With JAX and the JAX package blocked, every module the port added
     after its decode path imports and runs: the oracle (codec/) and the
-    Python encoder (encoder/bitwriter.py, encoder/encode.py), tight staging,
-    the sharded decoder (parallel/), the profiler (utils/profiling.py) and
-    the audio features (ops/audio.py)."""
+    Python encoder (encoder/bitwriter.py, encoder/encode.py), the sharded
+    decoder (parallel/), the profiler (utils/profiling.py) and the audio
+    features (ops/audio.py)."""
     script = textwrap.dedent(
         f"""
         import sys
@@ -301,8 +301,6 @@ def test_new_modules_run_with_jax_blocked():
         pkts = port.encode_packets(cfg, port.EncoderSpec(), pcm, backend="python")
         assert b"".join(codec.decode_packet(cfg, p)[0] for p in pkts) == want
         assert b"".join(port.BatchDecoder(cfg, "scalar").decode_packets(pkts)) == want
-        tight = batch.TorchBatchDecoder(cfg, "cpu", tight=True)
-        assert b"".join(tight.decode_packets(pkts)) == want
         sharded = parallel.ShardedBatchDecoder(cfg, ["cpu", "cpu"])
         assert b"".join(sharded.decode_packets(pkts)) == want
         timer, out = profiling.profile_batch_decode(cfg, pkts, iters=1, device="cpu")

@@ -186,8 +186,7 @@ def test_a_buffer_too_small_is_dropped():
 def test_counters_and_the_pack_span():
     """A decoder's first padded pack makes a buffer, every later one on a
     free buffer reuses it; the ``alac.batch.pack`` span says which.  A
-    dropped handle's buffer never comes back, and tight staging keeps no
-    pool and counts nothing."""
+    dropped handle's buffer never comes back."""
     cfg = _config()
     pk = _packets(cfg, 6, seed=3)
     dec = TorchBatchDecoder(cfg, "cpu")
@@ -202,9 +201,6 @@ def test_counters_and_the_pack_span():
     assert dec._staging_free == []
     dec.decode_packets(pk)
     assert _staging_counts() == (3, 2)
-    tight = TorchBatchDecoder(cfg, "cpu", tight=True)
-    assert tight.decode_packets(pk) == _native(cfg, pk)
-    assert _staging_counts() == (3, 2) and tight._staging_free == []
 
 
 def test_a_handle_finished_twice_gives_its_buffer_back_once():

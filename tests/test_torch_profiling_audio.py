@@ -44,14 +44,14 @@ def test_phase_timer_accounts_phases():
     assert report[0].split() == ["phase", "total", "calls", "share"] and len(report) == 3
 
 
-@pytest.mark.parametrize("tight", [False, True])
-def test_profile_batch_decode_stages_and_bytes(tight):
-    """24-bit bytesShifted=1 stereo, a partial last packet: every stage
-    timed once a call, and the bytes equal to the source."""
-    cfg = port.PacketConfig(128, 24, 2, 40, 10, 14, 255, 0, 0, 48000)
-    pcm = music_pcm(3 * 128 - 50, 2, 24, seed=44)
+@pytest.mark.parametrize("channels", [2, 8])
+def test_profile_batch_decode_stages_and_bytes(channels):
+    """24-bit bytesShifted=1 stereo and 7.1, a partial last packet: every
+    stage timed once a call, and the bytes equal to the source."""
+    cfg = port.PacketConfig(128, 24, channels, 40, 10, 14, 255, 0, 0, 48000)
+    pcm = music_pcm(3 * 128 - 50, channels, 24, seed=44)
     packets = port.encode_packets(cfg, port.EncoderSpec(bytes_shifted=1), pcm, backend="native")
-    timer, out = profiling.profile_batch_decode(cfg, packets, iters=2, device="cpu", tight=tight)
+    timer, out = profiling.profile_batch_decode(cfg, packets, iters=2, device="cpu")
     assert tuple(timer.phases) == profiling.STAGES
     assert all(n == 2 for n in timer.counts.values())
     assert b"".join(out) == pcm.astype("<i4").view(np.uint8).reshape(-1, 4)[:, :3].tobytes()

@@ -1,17 +1,18 @@
 """The port's decode programs (ops/program.py): one process-wide `Program`
-per (config statics, rows, width, taps, staging) key, its static inputs
-allocated at its second call and filled anew by every call from then on.
-On the CPU every call runs the decode eagerly (from the second on those
-inputs), so these tests reach the fill that a CUDA graph replay reads on
-the card: calls of several sizes on one key, padded and tight (a tight
-call after a longer one leaves stale words in the static buffer), the 9- and
-32-tap programs of one batch, two calls in flight on one key, and the
+per (config statics, rows, width, taps) key, its static inputs allocated
+at its second call and filled anew by every call from then on.  On the
+CPU every call runs the decode eagerly (from the second on those inputs),
+so these tests reach the fill that a CUDA graph replay reads on the card:
+calls of several sizes on one key, the 9- and 32-tap programs of one
+batch, two calls in flight on one key (each at 16 bits and at 24 bits
+bytesShifted=1, whose program also reads the shift region), and the
 cache's budget (eviction by pool bytes, least recently used first).  Every
 call's bytes equal the JAX package's `JaxBatchDecoder` and the JAX oracle,
 packet by packet (one JAX call on all the packets: each packet decodes on
 its own)."""
 
 import dataclasses
+import functools
 import threading
 
 import numpy as np
@@ -25,21 +26,25 @@ from saprobe_alac_tpu.encoder import ChannelSpec, EncoderSpec, encode_packets
 from saprobe_alac_tpu.ops.batch import JaxBatchDecoder
 from saprobe_alac_tpu_torch import PacketConfig, TorchBatchDecoder, _build
 from saprobe_alac_tpu_torch.ops import program
-from saprobe_alac_tpu_torch.ops.batch import _program_key, _tight_rows, payload
 from saprobe_alac_tpu_torch.ops.torchint import sext, shl, sshr, ushr
 
 F = 128
 ROWS = 48
+#: Each depth's width bucket: every call below, at that depth, has it.
+WIDTH = {16: 128, 24: 192}
 
 
-@pytest.fixture(scope="module")
-def case():
-    """(port config, 48 music packets (the last partial), an order-12
-    packet, {packet: the JAX decoder's bytes})."""
-    cfg = make_config(depth=16, channels=2, frame_length=F)
-    pk = encode_packets(cfg, EncoderSpec(), music_pcm(ROWS * F - 17, 2, 16, seed=5))
-    o12 = encode_packets(cfg, EncoderSpec(channel=ChannelSpec(order=12)),
-                         music_pcm(F, 2, 16, seed=6))[0]
+@functools.cache
+def _case(depth: int):
+    """(port config, 48 stereo music packets of ``depth`` bits (the last
+    partial; bytesShifted=1 at 24), an order-12 packet, {packet: the JAX
+    decoder's bytes})."""
+    cfg = make_config(depth=depth, channels=2, frame_length=F)
+    bs = depth // 24
+    pk = encode_packets(cfg, EncoderSpec(bytes_shifted=bs),
+                        music_pcm(ROWS * F - 17, 2, depth, seed=5))
+    o12 = encode_packets(cfg, EncoderSpec(channel=ChannelSpec(order=12), bytes_shifted=bs),
+                         music_pcm(F, 2, depth, seed=6))[0]
     everything = pk + [o12]
     jax_out = JaxBatchDecoder(cfg).decode_packets(everything)
     want = {}
@@ -47,6 +52,12 @@ def case():
         assert j == oracle(cfg, p)[0]
         want[p] = j
     return PacketConfig(**dataclasses.asdict(cfg)), pk, o12, want
+
+
+@pytest.fixture(scope="module")
+def case():
+    """`_case` at 16 bits."""
+    return _case(16)
 
 
 @pytest.fixture(autouse=True)
@@ -66,53 +77,39 @@ def _decode(dec, packets, rows=ROWS):
     return dec.finish_async(dec.decode_async(packets, rows=rows), packets)
 
 
-@pytest.mark.parametrize("tight", [False, True])
-def test_calls_of_several_sizes_share_a_program(case, tight):
+@pytest.mark.parametrize("depth", [16, 24])
+def test_calls_of_several_sizes_share_a_program(depth):
     """Calls of 40, 33, 48 and 1 packets in one batch bucket, then 40 again
-    (tight: after the longer call of 48 on its key, so the static buffer
-    holds that call's words past this call's payload): every call's bytes
-    equal JAX's and the oracle's."""
-    pc, pk, _, want = case
-    dec = TorchBatchDecoder(pc, "cpu", tight=tight)
+    (after the longer call of 48 on its key, so the staging buffer and the
+    static inputs held that call's words past this call's packets): every
+    call's bytes equal JAX's and the oracle's, through one program."""
+    pc, pk, _, want = _case(depth)
+    dec = TorchBatchDecoder(pc, "cpu")
     for n in (40, 33, 48, 1, 40):
         assert _decode(dec, pk[:n]) == [want[p] for p in pk[:n]]
         assert dec.last_fallbacks == 0
-    if not tight:
-        (prog,) = _progs()
-        assert prog.shape == (ROWS, 128, 9, False, 0) and prog.uses == 5
-        return
-    host = dec._host_stage(pk[:40], ROWS)
-    prog = {p.shape: p for p in _progs()}[_program_key(host, 9)]
-    assert prog.uses == 3  # 40, 48, 40
-    flat, *_ = payload(host)
-    assert flat.size == sum((len(p) + 3) // 4 for p in pk[:40])  # only the packets' words
-    stale = prog.inputs[0][flat.size:]
-    assert bool((stale != 0).any())  # the call of 48 left its words there
-    # ... and no row reads them: the rows gathered from the static inputs
-    # equal the padded rows of the same call.
-    words, _ = TorchBatchDecoder(pc, "cpu")._stage(pk[:40], ROWS)
-    assert torch.equal(_tight_rows(*prog.inputs, prog.shape[1]), words)
+    (prog,) = _progs()
+    assert prog.shape == (ROWS, WIDTH[depth], 9) and prog.uses == 5
 
 
-@pytest.mark.parametrize("tight", [False, True])
-def test_wide_order_runs_the_32_tap_program_of_the_same_rows(case, tight):
+@pytest.mark.parametrize("depth", [16, 24])
+def test_wide_order_runs_the_32_tap_program_of_the_same_rows(depth):
     """A batch with one order-12 packet runs the 9-tap program, then the
     32-tap program of the same rows and width (finish_async's retry)."""
-    pc, pk, o12, want = case
+    pc, pk, o12, want = _case(depth)
     batch = pk[:20] + [o12] + pk[20:30]
-    dec = TorchBatchDecoder(pc, "cpu", tight=tight)
+    dec = TorchBatchDecoder(pc, "cpu")
     assert dec.decode_packets(batch) == [want[p] for p in batch]
     k9, k32 = (p.shape for p in _progs())
-    assert (k9[2], k32[2]) == (9, 32) and k9[:2] == k32[:2] == (32, 128)  # 31 packets
-    assert k9[3:] == k32[3:]
+    assert k9 == (32, WIDTH[depth], 9) and k32 == (32, WIDTH[depth], 32)  # 31 packets
 
 
-@pytest.mark.parametrize("tight", [False, True])
-def test_two_calls_in_flight_on_one_key(case, tight):
+@pytest.mark.parametrize("depth", [16, 24])
+def test_two_calls_in_flight_on_one_key(depth):
     """Two decode_async calls on one key, both made before either is
     finished: each handle holds its own outputs."""
-    pc, pk, _, want = case
-    dec = TorchBatchDecoder(pc, "cpu", tight=tight)
+    pc, pk, _, want = _case(depth)
+    dec = TorchBatchDecoder(pc, "cpu")
     a, b = pk[:33], pk[10:43]
     ha = dec.decode_async(a, rows=ROWS)
     hb = dec.decode_async(b, rows=ROWS)

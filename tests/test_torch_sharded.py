@@ -5,7 +5,9 @@ batch and a single packet, the config matrix, an error lane and a declined
 lane (the host fallback, summed over shards), and F=4096; bytes equal to
 the JAX oracle, and on the 8-device case to the JAX package's
 `ShardedBatchDecoder` on conftest's 8-device CPU mesh (a JAX decoder
-compiles for each config: once is enough).
+compiles for each config: once is enough).  Each shard's staging pool
+serves the sharded calls as it serves its own: a buffer a call in flight,
+given back once by its finish, never by a dropped handle.
 `BatchDecoder(cfg)` shards exactly when there is more than one card."""
 
 import dataclasses
@@ -22,6 +24,7 @@ from saprobe_alac_tpu.encoder import EncoderSpec, encode_packets
 from saprobe_alac_tpu.parallel import ShardedBatchDecoder as JaxShardedBatchDecoder
 from saprobe_alac_tpu.parallel import make_packet_mesh as jax_mesh
 import saprobe_alac_tpu_torch as port
+from saprobe_alac_tpu_torch.ops import program
 from saprobe_alac_tpu_torch.parallel import ShardedBatchDecoder, make_packet_mesh
 
 
@@ -150,8 +153,73 @@ def test_batch_decoder_shards_exactly_with_several_cards(monkeypatch):
         monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
         impl = port.BatchDecoder(cfg).impl
         assert isinstance(impl, ShardedBatchDecoder) == (count > 1)
-        assert isinstance(impl, port.TorchBatchDecoder) and impl.device.type == "cuda"
+        assert isinstance(impl, port.TorchBatchDecoder) == (count == 1)
         assert make_packet_mesh() == [torch.device("cuda", i) for i in range(count)]
-        if count > 1:
+        if count > 1:  # one single-device decoder a card, and no other
             assert impl.devices == make_packet_mesh()
+            assert [shard.device for shard in impl._shards] == impl.devices
+            assert all(type(shard) is port.TorchBatchDecoder for shard in impl._shards)
+        else:
+            assert impl.device.type == "cuda"
     assert type(port.BatchDecoder(cfg, "cpu").impl) is port.TorchBatchDecoder
+
+
+def _pool_case(seed):
+    """(a two-shard decoder on the CPU, 10 packets, {packet: the oracle's
+    bytes}): a batch of 6 or more packets puts some in each shard."""
+    cfg = make_config(frame_length=F)
+    pkts = encode_packets(cfg, EncoderSpec(), music_pcm(F * 10, 2, 16, seed=seed))
+    dec = ShardedBatchDecoder(_port(cfg), ["cpu"] * 2)
+    return dec, pkts, {p: oracle(cfg, p)[0] for p in pkts}
+
+
+def _held(handle):
+    """The staging buffer each shard's handle holds (None: none)."""
+    return [h.staging for h, _ in handle]
+
+
+def test_sharded_calls_in_flight_hold_their_own_staging():
+    """Two sharded calls in flight: on each shard, each call holds a staging
+    buffer of its own; each finish gives its buffers back to their shards,
+    and a third call packs into them."""
+    dec, pkts, want = _pool_case(seed=47)
+    a, b = pkts[:6], pkts[3:10]
+    ha, hb = dec.decode_async(a), dec.decode_async(b)
+    ptrs_a = [t.data_ptr() for t in _held(ha)]
+    ptrs_b = [t.data_ptr() for t in _held(hb)]
+    assert all(pa != pb for pa, pb in zip(ptrs_a, ptrs_b))
+    assert [s._staging_free for s in dec._shards] == [[], []]
+    assert dec.finish_async(hb, b) == [want[p] for p in b]
+    assert _held(hb) == [None, None]
+    assert [[t.data_ptr() for t in s._staging_free] for s in dec._shards] == [[p] for p in ptrs_b]
+    assert dec.finish_async(ha, a) == [want[p] for p in a]
+    assert [{t.data_ptr() for t in s._staging_free} for s in dec._shards] == [
+        {pa, pb} for pa, pb in zip(ptrs_a, ptrs_b)]
+    program.reset_counts()
+    assert dec.decode_packets(a) == [want[p] for p in a]
+    c = program.counts("cpu")
+    assert (c["staging_reuses"], c["staging_allocs"]) == (2, 0)
+
+
+def test_a_dropped_sharded_handle_gives_no_buffer_back():
+    """A sharded handle dropped unfinished (as the facade's seek drops its
+    prefetch) gives no shard its buffer back: the next call makes new ones."""
+    dec, pkts, want = _pool_case(seed=48)
+    assert dec.decode_packets(pkts) == [want[p] for p in pkts]
+    assert [len(s._staging_free) for s in dec._shards] == [1, 1]
+    h = dec.decode_async(pkts)
+    assert [s._staging_free for s in dec._shards] == [[], []]
+    del h
+    assert [s._staging_free for s in dec._shards] == [[], []]
+    program.reset_counts()
+    assert dec.decode_packets(pkts) == [want[p] for p in pkts]
+    c = program.counts("cpu")
+    assert (c["staging_reuses"], c["staging_allocs"]) == (0, 2)
+    assert [len(s._staging_free) for s in dec._shards] == [1, 1]
+
+
+def test_a_sharded_handle_finished_twice_gives_each_buffer_back_once():
+    dec, pkts, want = _pool_case(seed=49)
+    h = dec.decode_async(pkts)
+    assert dec.finish_async(h, pkts) == dec.finish_async(h, pkts) == [want[p] for p in pkts]
+    assert [len(s._staging_free) for s in dec._shards] == [1, 1]

@@ -18,7 +18,7 @@ from conftest import music_pcm
 
 import saprobe_alac_tpu_torch as port
 from saprobe_alac_tpu_torch.ops import program
-from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder, payload
+from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
 from saprobe_alac_tpu_torch.utils import profiling
 
 #: Frame length: a plain CPU decode costs its rows, whatever the batch.
@@ -103,14 +103,15 @@ _PADDED = [(None, SUBMIT), (SUBMIT, "alac.batch.pack"), (SUBMIT, "alac.program.d
            (FINISH, "alac.batch.download"), (FINISH, "alac.batch.trim")]
 
 
-@pytest.mark.parametrize("tight", [False, True])
-def test_a_call_records_its_tree(tight):
-    """Padded and tight: one submit and one finish of one call id, the
-    pack, the program's dispatch holding its fill, the download and the
-    trim; one span a stage, never one a packet."""
-    cfg = _config()
+@pytest.mark.parametrize("channels", [2, 8])
+def test_a_call_records_its_tree(channels):
+    """Stereo and 7.1 (five elements a packet): one submit and one finish
+    of one call id, the pack, the program's dispatch holding its fill, the
+    download and the trim; one span a stage, never one a packet or an
+    element."""
+    cfg = _config(channels=channels)
     pk = _packets(cfg, 5, seed=2)
-    dec = TorchBatchDecoder(cfg, "cpu", tight=tight)
+    dec = TorchBatchDecoder(cfg, "cpu")
     want = dec.decode_packets(pk)
     out, rec = _recorded(lambda: dec.decode_packets(pk))
     assert out == want
@@ -233,15 +234,17 @@ def test_fallback_counts_and_the_public_last_fallbacks():
     assert port.BatchDecoder(cfg, "native").last_fallbacks == 0
 
 
-@pytest.mark.parametrize("tight", [False, True])
-def test_upload_bytes_are_the_payloads(tight):
+@pytest.mark.parametrize("depth", [16, 24])
+def test_upload_bytes_are_the_payloads(depth):
     """``upload_bytes`` (counter and the fill span's ``bytes``) equals the
-    `payload` of the call's host stage, on a fill of the program's inputs."""
-    cfg = _config(depth=24)
+    bytes of the call's host stage, its words and size_bits, on a fill of
+    the program's inputs."""
+    cfg = _config(depth=depth)
     pk = _packets(cfg, 5, seed=9)
-    dec = TorchBatchDecoder(cfg, "cpu", tight=tight)
+    dec = TorchBatchDecoder(cfg, "cpu")
     dec.decode_packets(pk)  # the key's first use: the caller's arrays as they are
-    want = sum(a.nbytes for a in payload(dec._host_stage(pk)))
+    words, sizes, _ = dec._host_stage(pk)
+    want = words.nbytes + sizes.nbytes
     program.reset_counts()
     _, rec = _recorded(lambda: dec.decode_packets(pk))
     (fill,) = [s for s in rec if s.name == "alac.program.fill"]
@@ -276,7 +279,6 @@ def test_spans_off_build_no_attributes(monkeypatch):
     cfg = _config()
     pk = _packets(cfg, 5, seed=10)
     TorchBatchDecoder(cfg, "cpu").decode_packets(pk)
-    TorchBatchDecoder(cfg, "cpu", tight=True).decode_packets(pk)
     port.ShardedBatchDecoder(cfg, ["cpu", "cpu"]).decode_packets(pk)
     assert built == [] and profiling.spans() == []
 
