@@ -14,10 +14,11 @@ Phases, one line each (any failure raises and exits non-zero):
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
   2. build of the CUDA kernels (csrc/, nvcc) and of the C++ host core
      (native/, g++); the three walk kernels', the LPC kernel's four
-     instantiations', the encode kernel's and the raw reader's registers,
-     stack and spills as ptxas reports them, the instructions of each LPC
-     row loop and of the encode kernel's sample loop, and the encode and raw
-     reader kernels' instructions (SASS, cuobjdump);
+     instantiations', the encode kernel's, the raw reader's and the
+     epilogue kernel's registers, stack and spills as ptxas reports them,
+     the instructions of each LPC row loop and of the encode kernel's
+     sample loop, and the encode and raw reader kernels' instructions
+     (SASS, cuobjdump);
   3. the element and LPC kernels against their plain PyTorch versions on
      the card, B=256 packets of F=512, 16-bit stereo, tolerance 0 (integer
      code): music, a partial final packet, near-white noise (escape
@@ -25,9 +26,10 @@ Phases, one line each (any failure raises and exits non-zero):
      and two corrupted packets;
   4. the decode path at full size: B=2048 packets of F=4096 44.1 kHz 16-bit
      stereo music (about 190 s) through BatchDecoder(cfg, "cuda"), bytes
-     equal to the source PCM, one packet walk and one LPC launch and no
-     element launch, no packet on the host fallback; then decode_packets timed by the host
-     clock (median of warm runs, x realtime);
+     equal to the source PCM, one packet walk, one LPC and one epilogue
+     launch and no element launch, no packet on the host fallback; then
+     decode_packets timed by the host clock (median of warm runs, x
+     realtime);
   5. each kernel against its plain version at the shapes phase 4 gave it
      (the packet kernel on the B=2048 batch, the LPC at 9 taps on its 4096
      lanes), tolerance 0; kernel times by CUDA events (median of warm runs),
@@ -46,8 +48,9 @@ Phases, one line each (any failure raises and exits non-zero):
   7. the hi-res decode path at full size: B=2048 packets of F=4096 96 kHz
      24-bit stereo music with bytesShifted=1 (87.4 s of audio) through
      BatchDecoder(cfg) on the default device, bytes equal to the source as
-     3-byte samples, one packet walk, one LPC and one raw reader launch
-     (every channel's lanes) and no element launch, no host fallback;
+     3-byte samples, one packet walk, one LPC, one raw reader (every
+     channel's lanes) and one epilogue launch and no element launch, no
+     host fallback;
      decode_packets timed as in phase 4;
   8. the packet, LPC and raw reader kernels against their plain versions at
      the shapes phase 7 gave them, tolerance 0; their times by CUDA events beside their bounds
@@ -105,10 +108,10 @@ Phases, one line each (any failure raises and exits non-zero):
  15. the multi-slot decode path at full width: B=2048 packets of F=4096
      48 kHz 24-bit 7.1 surround (SCE CPE CPE CPE SCE) with bytesShifted=1
      (174.8 s of audio) through BatchDecoder(cfg) on the default device,
-     bytes equal to the source, one packet, one LPC and one raw read
-     launch, no host fallback; decode_packets timed as in phase 4; one call
-     under torch.profiler (the card's busy time, its top kernels) and one
-     with every stage synchronised and timed by the host clock;
+     bytes equal to the source, one packet, one LPC, one raw read and one
+     epilogue launch, no host fallback; decode_packets timed as in phase 4;
+     one call under torch.profiler (the card's busy time, its top kernels)
+     and one with every stage synchronised and timed by the host clock;
  16. at phase 15's shapes, on its batch: the packet kernel against its
      plain version run on the host (`on_host`: five elements a packet,
      eight passes of 4096 rows of op launches, a minute or more), every
@@ -222,10 +225,14 @@ Phases, one line each (any failure raises and exits non-zero):
      source, no host fallback; after each file the card's reserved bytes
      and the bytes the program cache keeps (static inputs and graph pools),
      which stay within the budget plus the largest single program's; then
-     the budget lowered to 1 GiB:
-     programs evicted on the card, the bytes still equal, and the reserved
+     the budget lowered to 256 MiB: programs evicted on the card, the bytes still equal, and the reserved
      bytes after empty_cache falling with what the cache holds (the
-     evicted pools returned).
+     evicted pools returned);
+ 24. the epilogue kernel against its plain twin (`epilogue_phase`) on the
+     inputs a decode call builds from phase 15's 7.1 batch, phase 4's
+     16-bit stereo batch and the first 256 packets of phase 7's: 0 differing
+     bytes, the path (raw reader and kernel) equal too; the kernel's, the
+     path's and the twin's ms by CUDA events beside the kernel's byte bound.
 The line before the last is the kernels' JSON record (each kernel's
 launches on its path, on phase 20's paths as ``launches_phase20_*``, on
 phase 21's as ``launches_phase21_*`` and on phase 23's corpus as
@@ -485,6 +492,9 @@ def sass(so_path, kernels: dict):
 #: The encode and raw reader kernels, for phase 2's ptxas and SASS counts.
 ENCODE_KERNELS = {"encode": "encode_kernel"}
 RAW_KERNELS = {"raw_read": "raw_reader_kernel"}
+#: The epilogue kernel's instantiations, epilogue_kernel<DEPTH, VEC>.
+EPILOGUE_KERNELS = {f"epilogue<{d},{v}>": f"epilogue_kernelILi{d}ELb{int(v)}E"
+                    for d in (16, 20, 24, 32) for v in (False, True)}
 
 
 #: The opcodes of the card's integer divide sequence (a float reciprocal
@@ -592,6 +602,81 @@ def hold_batch(c, packets, dev, kernels):
         raise AssertionError(f"{len(packets)} packets of {Cc} channels at {c.bit_depth} bits: "
                              f"kernels differ from their plain versions {err}")
     return plain
+
+
+def epilogue_phase(tag, dev, batches, runs=RUNS):
+    """Phase 24: the epilogue kernel against its plain twin on the card, for
+    each of ``batches`` ({label: (config, packets)}), on the inputs one
+    `decode_async` call builds (its staged words, the packet walk, the LPC
+    at 9 taps, the raw reader's output for the shift region): the PCM rows
+    byte for byte (0 differing bytes, the twin's dtype and shape), and
+    `epilogue.epilogue` (the raw reader and the kernel) equal too.  Then,
+    by CUDA events (median of ``runs`` samples of one call): the kernel;
+    the path (raw reader and kernel); the twin (`extract_shift`, its raw
+    read included, and `finish_packed`); and the kernel's bound: the LPC's
+    samples, the raw lanes it reads (bs > 0, not a V channel), the six
+    fields and the rows, each once.  Returns {label: numbers}."""
+    from saprobe_alac_tpu_torch.ops import lpc_kernel
+    from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
+    from saprobe_alac_tpu_torch.native import BYTES_PER_SAMPLE
+    from saprobe_alac_tpu_torch.ops.epilogue import (
+        epilogue, epilogue_kernel, extract_shift, finish_packed, shift_reads,
+    )
+    from saprobe_alac_tpu_torch.ops.raw_reader import raw_read
+    from saprobe_alac_tpu_torch.ops.walk import walk_batch
+
+    res, lines = {}, []
+    for label, (c, packets) in batches.items():
+        Fc, Cc, depth = c.frame_length, c.num_channels, c.bit_depth
+        shift = depth in (24, 32)
+        words, sizes = TorchBatchDecoder(c, dev)._stage(packets)
+        w = walk_batch(words, sizes, F=Fc, C=Cc, depth=depth, pb=c.pb, mb=c.mb, kb=c.kb)
+        mix = lpc_kernel.lpc_fir(*lanes(w, Cc), F=Fc, taps=9)[:Fc]
+        fields = (w.bs, w.mixbits, w.mixres, w.role, w.out_chan, w.filled)
+        raw = None
+        if shift:
+            *reads, row = shift_reads(w.shift_base, w.bs, w.role, w.ns)
+            raw = raw_read(words, *reads, F=Fc, row=row)
+
+        def kernel():
+            return epilogue_kernel(mix, raw, *fields, C=Cc, depth=depth)
+
+        def path():
+            return epilogue(words, mix, w, F=Fc, C=Cc, depth=depth)
+
+        def twin():
+            vals = None
+            if shift:
+                vals = extract_shift(words, w.shift_base, w.bs, w.role, w.ns, F=Fc, C=Cc)
+            return finish_packed(mix, vals, *fields, C=Cc, depth=depth)
+
+        got, want = kernel(), twin()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"phase 24 {label}: the kernel's rows {got.dtype} "
+                                 f"{tuple(got.shape)}, the twin's {want.dtype} {tuple(want.shape)}")
+        # The twin's 16-bit rows are a transposed view; its bytes as the download
+        # copies them are its contiguous copy's.
+        differ = int((got.view(torch.uint8) != want.contiguous().view(torch.uint8)).sum())
+        if differ or not torch.equal(path(), want):
+            raise AssertionError(f"phase 24 {label}: {differ} bytes of the epilogue kernel "
+                                 "differ from its plain twin's (or the path's from the kernel's)")
+        del got, want
+        t_kernel, t_path, t_twin = (cuda_times(fn, runs) for fn in (kernel, path, twin))
+        B = words.shape[0]
+        raw_lanes = int(((w.bs > 0) & (w.role != 2)).sum()) if shift else 0
+        nbytes = (4 * (mix.numel() + Fc * raw_lanes + len(fields) * B * Cc)
+                  + B * Fc * Cc * BYTES_PER_SAMPLE[depth])
+        kb, by = bound(nbytes, 0)
+        res[label] = {"B": B, "C": Cc, "depth": depth, "differing_bytes": differ,
+                      "ms": statistics.median(t_kernel), "ms_path": statistics.median(t_path),
+                      "plain_ms": statistics.median(t_twin), "bound_ms": kb, "bound_by": by,
+                      "bytes": nbytes}
+        lines.append(f"{label} (B={B}): differing bytes {differ}; kernel ms "
+                     f"{summary(t_kernel)} | raw reader and kernel {summary(t_path)} | twin "
+                     f"{summary(t_twin)} | bound {kb:.4f} by {by} ({nbytes} bytes)")
+        del words, sizes, w, mix, raw
+    print(f"phase 24 {tag} epilogue kernel vs its plain twin, tolerance 0: " + "; ".join(lines))
+    return res
 
 
 def shared_decoder(port, c, packets, pcm_all, slices, seed, threads=4):
@@ -707,7 +792,7 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
         program.reset_counts()
         if read_all(64) != src:
             raise AssertionError("phase 20 track: the facade's bytes differ from the source")
-        launches["track"] = launched("track", ("packet", "lpc"), port.launch_counts())
+        launches["track"] = launched("track", ("packet", "lpc", "epilogue"), port.launch_counts())
         res["programs_first_decoder"] = program_runs()
         no_fallbacks("track")
         windows = -(-n_pk // 64)
@@ -887,7 +972,8 @@ def facade_phase(port, tag, dev, scale=1.0, frame=F, runs=3):
             if f.index in seen or f.pcm != pcm_bytes(music_pcm(n, ch, seed, depth=depth, dev=dev), depth):
                 raise AssertionError(f"phase 20 (c): file {f.index} differs from its source")
             seen.add(f.index)
-        launches["corpus"] = launched("corpus", ("packet", "lpc", "raw_read"), port.launch_counts())
+        launches["corpus"] = launched("corpus", ("packet", "lpc", "raw_read", "epilogue"),
+                                      port.launch_counts())
         res["programs_corpus_pass1"] = program_runs()
         # The first pass's keys that ran once: a key's second use captures.
         once = sum(1 for p in program.programs(dev)
@@ -995,7 +1081,7 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
     res, launches = {}, {}
 
     def kernels_of(c):
-        return ("packet", "lpc") + (("raw_read",) if c.bit_depth in (24, 32) else ())
+        return ("packet", "lpc", "epilogue") + (("raw_read",) if c.bit_depth in (24, 32) else ())
 
     def launched(where, path, c, per=1):
         """The path kernels' launches since the last reset: ``per`` each."""
@@ -1004,7 +1090,8 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
         if any(n != per for n in got.values()):
             raise AssertionError(f"phase 21 {where}: launches {counts}, want {per} of each "
                                  f"of {kernels_of(c)}")
-        total = launches.setdefault(path, {"packet": 0, "lpc": 0, "raw_read": 0, "replay": 0})
+        total = launches.setdefault(path, {"packet": 0, "lpc": 0, "raw_read": 0, "epilogue": 0,
+                                           "replay": 0})
         for k, n in (*got.items(), ("replay", counts["replay"])):
             total[k] += n
 
@@ -1049,7 +1136,7 @@ def new_paths_phase(port, tag, dev, batches, ragged, runs=RUNS):
     res["ragged"] = {"packets": len(pk3), "error_lanes": bad,
                      "outcome": got if isinstance(got, str) else "bytes"}
     print(f"phase 21 {tag} (a) TorchBatchDecoder(cfg): bytes == source, launches 1 packet, "
-          f"1 lpc (1 raw read at 24 bits) a call, host fallbacks 0; " + "; ".join(lines)
+          f"1 lpc, 1 epilogue (1 raw read at 24 bits) a call, host fallbacks 0; " + "; ".join(lines)
           + f"; ragged F={c3.frame_length} B={len(pk3)} (partial packet, escapes, orders 12 "
           f"and 31): error lanes {bad}, the oracle's outcome ({res['ragged']['outcome']}), the "
           f"{len(good)} other packets' bytes == the host core's")
@@ -1524,8 +1611,11 @@ CONFIGS23 = [(ch, depth, rate) for ch in (1, 2, 6, 8) for depth in (16, 24)
 #: partial one, so each config has a full key (used twice a file) and a
 #: partial one.
 PACKETS23 = 2 * 256 + 100
-#: Phase 23's lowered budget (bytes) for its eviction sub-step.
-LOW_BUDGET23 = 1 << 30
+#: Phase 23's lowered budget (bytes) for its eviction sub-step: well below
+#: what the corpus's programs hold at the default budget (0.94 GB on an H100
+#: since the epilogue kernel; 2.95 GB before it, against 1 GiB then), so
+#: the pass evicts several times the check's slack.
+LOW_BUDGET23 = 1 << 28
 
 
 def corpus_configs_phase(port, tag, dev, frame=F, packets=PACKETS23, low_budget=LOW_BUDGET23):
@@ -1619,8 +1709,8 @@ def corpus_configs_phase(port, tag, dev, frame=F, packets=PACKETS23, low_budget=
         res["files"], res["largest_program"] = decode_pass("default budget", limit)
         res["decode_s"] = time.perf_counter() - t0
         counts = port.launch_counts()
-        launches = {k: counts[k] for k in ("packet", "lpc", "raw_read", "replay")}
-        missing = [k for k in ("packet", "lpc", "raw_read") if counts[k] == 0]
+        launches = {k: counts[k] for k in ("packet", "lpc", "raw_read", "epilogue", "replay")}
+        missing = [k for k in ("packet", "lpc", "raw_read", "epilogue") if counts[k] == 0]
         if missing:
             raise AssertionError(f"phase 23: no launch of {missing} ({counts})")
         res["budget"] = limit
@@ -1729,6 +1819,8 @@ def main() -> int:
     )
 
     er_regs = ptxas_report(_build.build_log(), {**ENCODE_KERNELS, **RAW_KERNELS})
+    ep_regs = ptxas_report(_build.build_log(), EPILOGUE_KERNELS)
+    print(f"phase 2 epilogue kernel (ptxas): {ep_regs}")
     er_listing = {
         label: (sass(_build._OUT / f"lib{sub}.so", kernels) or {}).get(label, (None, None))
         for kernels in (ENCODE_KERNELS, RAW_KERNELS) for label, sub in kernels.items()
@@ -1855,8 +1947,10 @@ def main() -> int:
     launches = port.launch_counts()
     check_decode(out, pcm, 16)
     # One packet walk for every C: the element kernel is off the decode path.
-    if (launches["packet"], launches["lpc"], launches["element"]) != (1, 1, 0):
-        raise AssertionError(f"16-bit path: launches {launches}, want 1 packet, 1 lpc, 0 element")
+    if (launches["packet"], launches["lpc"], launches["epilogue"], launches["element"]) != (
+            1, 1, 1, 0):
+        raise AssertionError(f"16-bit path: launches {launches}, want 1 packet, 1 lpc, "
+                             "1 epilogue, 0 element")
     if dec.impl.last_fallbacks:
         raise AssertionError(f"{dec.impl.last_fallbacks} clean packets fell back to the host")
     audio_s = total / cfg.sample_rate
@@ -2015,9 +2109,9 @@ def main() -> int:
     # One raw read for every channel (the pair's fused read on channel 0's
     # lanes; channel 1's lanes, which no pair reads for, inactive).
     if (h_launches["packet"], h_launches["lpc"], h_launches["raw_read"],
-            h_launches["element"]) != (1, 1, 1, 0):
+            h_launches["epilogue"], h_launches["element"]) != (1, 1, 1, 1, 0):
         raise AssertionError(f"hi-res path: launches {h_launches}, want 1 packet, 1 lpc, "
-                             "1 raw read, 0 element")
+                             "1 raw read, 1 epilogue, 0 element")
     if hdec.impl.last_fallbacks:
         raise AssertionError(f"{hdec.impl.last_fallbacks} clean hi-res packets fell back")
     h_audio_s = total / hcfg.sample_rate
@@ -2552,8 +2646,10 @@ def main() -> int:
     sout = sdec.decode_packets(spkts)
     s_launches = port.launch_counts()
     check_decode(sout, spcm, 24)
-    if (s_launches["packet"], s_launches["lpc"], s_launches["raw_read"]) != (1, 1, 1):
-        raise AssertionError(f"7.1 path: launches {s_launches}, want 1 packet, 1 lpc, 1 raw read")
+    if (s_launches["packet"], s_launches["lpc"], s_launches["raw_read"],
+            s_launches["epilogue"]) != (1, 1, 1, 1):
+        raise AssertionError(f"7.1 path: launches {s_launches}, want 1 packet, 1 lpc, 1 raw "
+                             "read, 1 epilogue")
     if sdec.impl.last_fallbacks:
         raise AssertionError(f"{sdec.impl.last_fallbacks} clean 7.1 packets fell back")
     s_audio_s = total / scfg.sample_rate
@@ -2932,6 +3028,12 @@ def main() -> int:
     res23["phase_s"] = time.perf_counter() - t23
     print(f"phase 23 {tag} numbers: {json.dumps(res23)}")
 
+    # ---- phase 24: the epilogue kernel against its plain twin ----
+    t24 = time.perf_counter()
+    res24 = epilogue_phase(tag, dev, {"7.1": (scfg, spkts), "16-bit stereo": (cfg, pkts),
+                                      "96 kHz 24-bit stereo B=256": (hcfg, hpkts[:256])})
+    print(f"phase 24 {tag} seconds: {time.perf_counter() - t24:.1f}")
+
     def phase21(kernel):
         """A kernel's launches on each of phase 21's paths, as JSON keys."""
         return {f"launches_phase21_{path}": counts[kernel] for path, counts in l21.items()
@@ -3050,6 +3152,25 @@ def main() -> int:
             "lpc_bound_ms_L16384": s_lpc_bound[0], "lpc_launches": s_launches["lpc"],
             "raw_reads_ms": statistics.median(t_srr), "raw_reads_bound_ms": s_rr_bound[0],
             "raw_read_launches": s_launches["raw_read"],
+        },
+        {
+            "name": "epilogue", "route": "cuda",
+            "source": "saprobe_alac_tpu_torch/csrc/epilogue_kernel.cu",
+            "replaces": "none: XLA glue in the JAX package (saprobe_alac_tpu/ops/epilogue.py:"
+                        "166-283)",
+            "launches": s_launches["epilogue"],
+            "launches_stereo_16bit": launches["epilogue"],
+            "launches_stereo_hires": h_launches["epilogue"],
+            "launches_phase20_track": l20["track"]["epilogue"],
+            "launches_phase20_corpus": l20["corpus"]["epilogue"],
+            **phase21("epilogue"), "launches_phase23_corpus": l23["epilogue"],
+            "max_abs_err": max(r["differing_bytes"] for r in res24.values()),
+            "ms": res24["7.1"]["ms"], "plain_ms": res24["7.1"]["plain_ms"],
+            "bound_ms": res24["7.1"]["bound_ms"], "bound_by": res24["7.1"]["bound_by"],
+            "library_ms": None,
+            **{f"{key}_{label}": r[key] for label, r in res24.items() if label != "7.1"
+               for key in ("ms", "plain_ms", "bound_ms")},
+            "ptxas": ep_regs,
         },
         {
             "name": "dense_entropy", "route": "cuda",

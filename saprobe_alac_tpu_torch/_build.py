@@ -38,7 +38,7 @@ _OUT = _PKG / "_build"
 #: One library per kernel source, each also including the shared headers.
 _KERNELS = (
     "element_kernel", "lpc_kernel", "raw_reader_kernel", "encode_kernel", "packet_kernel",
-    "dense_entropy_kernel",
+    "dense_entropy_kernel", "epilogue_kernel",
 )
 _HEADERS = ("alac_int.cuh", "element_walk.cuh")
 
@@ -49,7 +49,7 @@ _lib = None
 #: "replay": the decode programs' CUDA graph replays (ops/program.py).
 _launches = {
     "element": 0, "lpc": 0, "raw_read": 0, "lpc_forward": 0, "encode": 0, "packet": 0,
-    "dense_entropy": 0, "replay": 0,
+    "dense_entropy": 0, "epilogue": 0, "replay": 0,
 }
 #: A thread's launches go here instead while it captures a CUDA graph
 #: (`recording_launches`): a capture enqueues nothing.
@@ -177,7 +177,7 @@ def load():
             return _lib
         with ThreadPoolExecutor(len(_KERNELS)) as pool:
             libs = list(pool.map(_load_kernel, _KERNELS))
-        element, lpc, raw, encode, packet, dense = libs
+        element, lpc, raw, encode, packet, dense, epilogue = libs
         P, I = ctypes.c_void_p, ctypes.c_int
         element.alac_element_launch.restype = I
         element.alac_element_launch.argtypes = [
@@ -215,6 +215,13 @@ def load():
             I, I, I, I,  # B, F_pad, passes, kb
             P,  # stream
         ]
+        epilogue.alac_epilogue_launch.restype = I
+        epilogue.alac_epilogue_launch.argtypes = [
+            P, P,  # mix, raw
+            P, P, P, P, P, P,  # bs, mixbits, mixres, role, out_chan, filled
+            P, I, I, I, I, I,  # out, B, C, F, depth, vec
+            P,  # stream
+        ]
         _lib = SimpleNamespace(
             libs=libs,
             alac_packet_launch=packet.alac_packet_launch,
@@ -222,6 +229,7 @@ def load():
             alac_element_launch=element.alac_element_launch,
             alac_raw_read_launch=raw.alac_raw_read_launch,
             alac_encode_launch=encode.alac_encode_launch,
+            alac_epilogue_launch=epilogue.alac_epilogue_launch,
             **bind_lpc(lpc),
         )
         return _lib

@@ -1,3 +1,3 @@
-"""Batched decode path in PyTorch: walk (element kernel) -> lpc (LPC kernel)
--> epilogue (raw reader kernel for the shift region) -> batch, mirroring
-saprobe_alac_tpu/ops."""
+"""Batched decode path in PyTorch: walk (packet kernel) -> lpc (LPC kernel)
+-> epilogue (raw reader kernel for the shift region, epilogue kernel) ->
+batch, mirroring saprobe_alac_tpu/ops."""

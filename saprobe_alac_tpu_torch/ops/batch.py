@@ -61,7 +61,7 @@ from ..config import PacketConfig
 from ..errors import ConfigError, UnsupportedBitDepth
 from ..utils.profiling import DOWNLOAD, FALLBACK, FINISH, PACK, SUBMIT, TRIM, span
 from . import program
-from .epilogue import extract_shift, finish_packed
+from .epilogue import epilogue
 from .lpc import lpc_batch
 from .walk import ERR_NONE, channel_offsets, walk_batch
 
@@ -101,7 +101,8 @@ def _decode_core(words, sizes, *, F, C, depth, pb, mb, kb, taps, offsets):
     """The device part of a batch decode, from the staged rows (B, W) of
     big-endian words and their size_bits to (packed, err, ns, wide)
     (batch.py:140-243): the packet walk, the LPC at ``taps``, the shift
-    region's reads at 24/32 bits, and the epilogue.  A pure function of
+    region's reads at 24/32 bits, and the epilogue (on a card one launch of
+    the epilogue kernel, `epilogue.epilogue`).  A pure function of
     device tensors whose shapes the program key fixes: no host sync and no
     host-to-device copy, so a CUDA graph can capture it.  ``offsets``:
     `walk.channel_offsets(C)` on the batch's device."""
@@ -122,15 +123,9 @@ def _decode_core(words, sizes, *, F, C, depth, pb, mb, kb, taps, offsets):
         wide = ((w.order >= 9) & (w.order <= 30)).any(dim=1)
     else:
         wide = torch.zeros_like(w.err, dtype=torch.bool)
-    # Only the 24/32-bit writers re-insert shift bits (epilogue.py); the
-    # reader runs for every such batch, as in the JAX package's dense path.
-    shift_vals = None
-    if depth in (24, 32):
-        shift_vals = extract_shift(words, w.shift_base, w.bs, w.role, w.ns, F=F, C=C)
-    packed = finish_packed(
-        mix, shift_vals, w.bs, w.mixbits, w.mixres, w.role, w.out_chan, w.filled,
-        C=C, depth=depth,
-    )
+    # Only the 24/32-bit writers re-insert shift bits; the raw reader runs
+    # for every such batch, as in the JAX package's dense path.
+    packed = epilogue(words, mix, w, F=F, C=C, depth=depth)
     return packed, w.err, w.ns, wide
 
 

@@ -2,8 +2,11 @@
 
 Counterpart of saprobe_alac_tpu/ops/epilogue.py `extract_shift_kernel`,
 `_finish_planes`, `pack_output` and `finish_packed` for C = 1..8 at
-every depth (16, 20, 24, 32).  Plain PyTorch around the raw reader: the JAX
-package computes these in XLA outside any Pallas kernel.  Values are int64
+every depth (16, 20, 24, 32).  `epilogue` is the decode path's entry: for
+CUDA tensors the raw reader (24/32 bits) and one launch of the epilogue
+kernel (csrc/epilogue_kernel.cu, `epilogue_kernel`), for CPU tensors its
+plain twin, `extract_shift` and `finish_packed`.  The JAX package computes
+these in XLA outside any Pallas kernel.  In the twin, values are int64
 tensors holding int32 patterns; every sum and shift that can leave the int32
 range is wrapped (torchint).
 """
@@ -12,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
+from ..native import BYTES_PER_SAMPLE
 from .raw_reader import raw_read
 from .torchint import shl, sshr, ushr, wrap
 
@@ -141,3 +146,79 @@ def finish_packed(mix, shift_vals, bs, mixbits, mixres, role, out_chan, filled, 
         return packed.reshape(packed.shape[0], F * C // 2).to(torch.int32)
     samples = torch.stack(planes, dim=-1).transpose(0, 1).to(torch.int32)  # (B, F, C)
     return pack_output(samples, depth)
+
+
+def packed_layout(F, C, depth):
+    """(dtype, words a row) of `finish_packed`'s output for F frames of C
+    channels; each row holds F*C*BYTES_PER_SAMPLE[depth] bytes whatever
+    the dtype."""
+    if depth in (20, 24):
+        if (F * C) % 4 == 0:
+            return torch.int32, F * C * 3 // 4
+        return torch.uint8, F * C * 3
+    if depth == 16:
+        return (torch.int32, F * C // 2) if C % 2 == 0 else (torch.int16, F * C)
+    return torch.int32, F * C
+
+
+def epilogue_kernel(mix, raw, bs, mixbits, mixres, role, out_chan, filled, *, C, depth):
+    """One launch of the epilogue kernel: `finish_packed`'s tensor, byte for
+    byte, from the LPC's samples ``mix`` (F, C*B), the raw reader's output
+    ``raw`` for the shift region (at least F rows of C*B lanes; None below
+    24 bits: the kernel reads it at 24 and 32 bits only, where the twin
+    takes `extract_shift` of the same reads) and the walk's (B, C) fields,
+    all contiguous int32 on one CUDA device."""
+    if depth not in BYTES_PER_SAMPLE or not 1 <= C <= 8:
+        raise ValueError(f"no epilogue kernel for depth {depth}, C = {C}")
+    if mix.device.type != "cuda":
+        raise ValueError(f"no epilogue kernel for device {mix.device}")
+    F, L = mix.shape
+    B = L // C
+    if B * C != L:
+        raise ValueError(f"mix has {L} lanes, not a multiple of C = {C}")
+    fields = (bs, mixbits, mixres, role, out_chan, filled)
+    shift = depth in (24, 32)
+    if shift and (raw is None or raw.dim() != 2 or raw.shape[0] < F or raw.shape[1] != L):
+        raise ValueError(f"raw: want at least {F} rows of {L} lanes at depth {depth}")
+    named = zip(("mix", "raw", "bs", "mixbits", "mixres", "role", "out_chan", "filled"),
+                (mix, raw if shift else None, *fields))
+    for name, t in named:
+        if t is None:
+            continue
+        if t.device != mix.device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: want contiguous int32 on {mix.device}")
+        if name not in ("mix", "raw") and t.shape != (B, C):
+            raise ValueError(f"{name}: want shape ({B}, {C}), got {tuple(t.shape)}")
+    dtype, words = packed_layout(F, C, depth)
+    out = torch.empty((B, words), dtype=dtype, device=mix.device)
+    vec = (F * C * BYTES_PER_SAMPLE[depth]) % 16 == 0 and out.data_ptr() % 16 == 0
+    lib = _build.load()
+    with torch.cuda.device(mix.device):
+        stream = torch.cuda.current_stream(mix.device).cuda_stream
+        rc = lib.alac_epilogue_launch(
+            mix.data_ptr(), raw.data_ptr() if shift else None, *(t.data_ptr() for t in fields),
+            out.data_ptr(), B, C, F, depth, int(vec), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"epilogue kernel launch failed: CUDA error {rc}")
+    _build.count_launch("epilogue")
+    return out
+
+
+def epilogue(words, mix, w, *, F, C, depth):
+    """The decode path's epilogue: the PCM rows of a batch (`finish_packed`'s
+    tensor) from its staged words, the LPC's samples ``mix`` (F, C*B) and
+    the walk's result ``w``.  CUDA tensors take the raw reader for the shift
+    region (24/32 bits) and the epilogue kernel, with no fallback; CPU
+    tensors take the plain twin."""
+    fields = (w.bs, w.mixbits, w.mixres, w.role, w.out_chan, w.filled)
+    if mix.device.type == "cpu":
+        shift_vals = None
+        if depth in (24, 32):
+            shift_vals = extract_shift(words, w.shift_base, w.bs, w.role, w.ns, F=F, C=C)
+        return finish_packed(mix, shift_vals, *fields, C=C, depth=depth)
+    raw = None
+    if depth in (24, 32):
+        *lanes, row = shift_reads(w.shift_base, w.bs, w.role, w.ns)
+        raw = raw_read(words, *lanes, F=F, signed=False, row=row)
+    return epilogue_kernel(mix, raw, *fields, C=C, depth=depth)

@@ -3,8 +3,10 @@
 A machine without nvcc or a card can still run each kernel's own code:
 tests/cuda_host_stub.h stands in for the CUDA built-ins, every
 `kernel<<<grid, block, 0, stream>>>(args)` launch is rewritten into a loop
-over blocks and threads, and g++ builds csrc/*.cu into a host library whose
-C entry points take CPU pointers.  Outputs start as a sentinel, so a value
+over blocks and threads (for a kernel with a barrier, into
+`host_launch_threads`, which runs a block's threads at once), and g++
+builds csrc/*.cu into a host library whose C entry points take CPU
+pointers.  Outputs start as a sentinel, so a value
 the kernel fails to write shows up.  Tolerance 0 (integer code).  Skipped
 only when g++ is missing.
 """
@@ -22,11 +24,14 @@ import torch
 from conftest import make_config, music_pcm
 
 from saprobe_alac_tpu_torch import native
-from saprobe_alac_tpu_torch.codec.element import CHANNEL_LAYOUT_OFFSETS
+from saprobe_alac_tpu_torch.codec.element import CHANNEL_LAYOUT_OFFSETS, element_layout
 from saprobe_alac_tpu_torch.interop import encode_inputs_from_jax
 from saprobe_alac_tpu_torch.ops import encode_kernel, lpc_kernel, walk_kernel
 from saprobe_alac_tpu_torch.ops.batch import TorchBatchDecoder
 from saprobe_alac_tpu_torch.ops.encode_device import _zero_run_table
+from saprobe_alac_tpu_torch.ops.epilogue import (
+    extract_shift, finish_packed, packed_layout, shift_reads,
+)
 from saprobe_alac_tpu_torch.ops.raw_reader import raw_read_reference
 from saprobe_alac_tpu_torch.ops.lpc import lpc_lanes
 from saprobe_alac_tpu_torch.ops.walk import walk_batch
@@ -41,15 +46,21 @@ SENTINEL = -0x2B2B2B2B
 #: (depth, bytesShifted) of the hi-res batches.
 HIRES = [(20, 0), (24, 1), (32, 1), (32, 2)]
 _LAUNCH = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<(.*?),\s*(\w+),\s*0,.*?>>>\(", re.S)
+#: The launch with its arguments, up to the closing ``);``.
+_LAUNCH_CALL = re.compile(_LAUNCH.pattern + r"(.*?)\);", re.S)
 
 
 def _host_source(text: str) -> str:
     text = text.replace("#include <cuda_runtime.h>", "")
-    text, n = _LAUNCH.subn(
-        r"for (blockDim.x = unsigned(\3), blockIdx.x = 0; blockIdx.x < unsigned(\2); ++blockIdx.x) "
-        r"for (threadIdx.x = 0; threadIdx.x < unsigned(\3); ++threadIdx.x) \1(",
-        text,
-    )
+    if "__syncthreads" in text:
+        text, n = _LAUNCH_CALL.subn(
+            r"host_launch_threads(unsigned(\2), unsigned(\3), [&] { \1(\4); });", text)
+    else:
+        text, n = _LAUNCH.subn(
+            r"for (blockDim.x = unsigned(\3), blockIdx.x = 0; blockIdx.x < unsigned(\2); "
+            r"++blockIdx.x) for (threadIdx.x = 0; threadIdx.x < unsigned(\3); ++threadIdx.x) \1(",
+            text,
+        )
     assert n == 1, f"expected one kernel launch, rewrote {n}"
     return text
 
@@ -61,13 +72,14 @@ def host_lib(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("csrc_host")
     srcs = []
     for name in ("element_kernel.cu", "lpc_kernel.cu", "raw_reader_kernel.cu",
-                 "encode_kernel.cu", "packet_kernel.cu", "dense_entropy_kernel.cu"):
+                 "encode_kernel.cu", "packet_kernel.cu", "dense_entropy_kernel.cu",
+                 "epilogue_kernel.cu"):
         src = tmp / (name[:-3] + ".cpp")
         src.write_text(_host_source((CSRC / name).read_text()))
         srcs.append(str(src))
     so = tmp / "libkernels_host.so"
-    cmd = ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-w", "-include", str(STUB),
-           "-I", str(CSRC), "-o", str(so), *srcs]
+    cmd = ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-pthread", "-fno-strict-aliasing",
+           "-w", "-include", str(STUB), "-I", str(CSRC), "-o", str(so), *srcs]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
@@ -788,3 +800,99 @@ def test_raw_reader_kernel_host_one_launch_over_channels(host_lib):
     assert torch.equal(got, want), f"differs at {torch.nonzero(got != want)[:5].tolist()}"
     planes = got.view(-1, C, Bw)
     assert not planes[:, [2, 4, 6]].any() and planes[:, [0, 1, 3, 5, 7]].any(dim=(0, 2)).all()
+
+
+#: (depth, C, F) of the epilogue kernel's cases: every depth at C = 1, 2, 3,
+#: 6 and 8 with F = 64 (every row 16-byte aligned: 16-byte stores), and at
+#: C = 1, 3 and 6 with F = 61 (rows not 16-byte aligned: byte stores; at 20
+#: and 24 bits F*C % 4 != 0, where the twin takes `pack_output`).
+EPILOGUE_CASES = [(d, c, 64) for d in (16, 20, 24, 32) for c in (1, 2, 3, 6, 8)] + [
+    (d, c, 61) for d in (16, 20, 24, 32) for c in (1, 3, 6)]
+
+
+def _epilogue_inputs(C, Fe, seed, B=40):
+    """The epilogue's inputs for B packets: staged words with a shift
+    region a channel, LPC samples ``mix`` (Fe, C*B) and the walk's (B, C)
+    fields.  Roles and SMPTE slots follow the C-channel element layout, with
+    lanes of singles only, swapped slots, two channels on one slot (the
+    later wins), a slot out of range, a V role in channel 0 and a U role in
+    the last channel; unfilled slots; mixres 0 and non-zero, mixbits 0..31
+    and out of range; bytes shifted 0, 1 and 2, and on two lanes 3 and 4
+    (shift counts 24 and 32: the clamp to 31); ns from 0 to Fe; samples
+    and mixres at the edges of int32, so the un-mix and the shifts wrap."""
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    mix = rng.integers(-(2**23), 2**23, size=(Fe, C * B)).astype(i32)
+    mix[:, :5] = rng.integers(-(2**31), 2**31, size=(Fe, 5))
+    mix[:3, 5:9] = [[-(2**31), 2**31 - 1, -1, 0]] * 3
+    role = np.zeros((B, C), i32)
+    c = 0
+    for width in element_layout(C):
+        if width == 2:
+            role[:, c], role[:, c + 1] = 1, 2
+        c += width
+    out_chan = np.tile(np.array(CHANNEL_LAYOUT_OFFSETS[C - 1], i32), (B, 1))
+    role[::5] = 0
+    out_chan[7::9] = out_chan[7::9, ::-1]
+    out_chan[11, -1] = out_chan[11, 0]
+    out_chan[13, 0] = C
+    role[17, 0], role[19, -1] = 2, 1
+    filled = (rng.random((B, C)) < 0.85).astype(i32)
+    mixbits = rng.integers(0, 32, size=(B, C)).astype(i32)
+    mixbits[[2, 6, 10], 0] = [32, 40, -3]
+    mixres = rng.integers(-128, 128, size=(B, C)).astype(i32)
+    mixres[::4] = 0
+    mixres[[1, 2], 0] = [2**31 - 1, -(2**31)]
+    bs = rng.integers(0, 3, size=(B, C)).astype(i32)
+    bs = np.where(role == 2, np.roll(bs, 1, axis=1), bs)  # a pair's channels alike ...
+    bs[3] = rng.integers(0, 3, size=C)  # ... but on one lane
+    bs[[23, 29]] = [3], [4]  # a 48- or 64-bit pair field (reads 0), shift counts 24 and 32
+    ns = rng.integers(0, Fe + 1, size=B).astype(i32)
+    ns[:2] = [Fe, 0]
+    W = C * Fe + 8
+    words = rng.integers(-(2**31), 2**31, size=(B, W), dtype=np.int64).astype(i32)
+    shift_base = (np.arange(C) * 32 * Fe)[None, :] + rng.integers(0, 64, size=(B, C))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=i32))  # noqa: E731
+    fields = tuple(t(x) for x in (bs, mixbits, mixres, role, out_chan, filled))
+    return t(words), t(mix), t(shift_base), t(ns), fields
+
+
+@pytest.mark.parametrize("depth,C,Fe", EPILOGUE_CASES)
+def test_epilogue_kernel_host_matches_plain(host_lib, depth, C, Fe):
+    """The epilogue kernel's bytes against its plain twin (`extract_shift` of
+    the raw reader's output, then `finish_packed`), in the twin's dtype and
+    shape: B = 40 packets (a partial tile of packets), Fe frames (a partial
+    tile of frames, and at 61 a partial group of four)."""
+    words, mix, shift_base, ns, fields = _epilogue_inputs(C, Fe, 31 * depth + 7 * C + Fe)
+    bs, mixbits, mixres, role, out_chan, filled = fields
+    B = words.shape[0]
+    shift = depth in (24, 32)
+    raw = None
+    if shift:
+        *lanes, row = shift_reads(shift_base, bs, role, ns)
+        raw = raw_read_reference(words, *lanes, F=Fe, row=row)
+        assert {0, 1, 2} <= set(bs.flatten().tolist()) and raw[:Fe].any()
+    shift_vals = extract_shift(words, shift_base, bs, role, ns, F=Fe, C=C) if shift else None
+    want = finish_packed(mix, shift_vals, *fields, C=C, depth=depth)
+    assert (filled == 0).any() and (mixres == 0).any() and (mixres != 0).any()
+    dtype, n = packed_layout(Fe, C, depth)
+    assert want.dtype == dtype and want.shape == (B, n)
+    got = torch.empty((B, n), dtype=dtype)
+    got.view(torch.uint8).fill_(0xAB)
+    vec = (n * got.element_size()) % 16 == 0  # every row starts 16-byte aligned
+    rc = host_lib.alac_epilogue_launch(
+        _ptr(mix), None if raw is None else _ptr(raw), *(_ptr(x) for x in fields), _ptr(got),
+        B, C, Fe, depth, int(vec), None,
+    )
+    assert rc == 0
+    assert torch.equal(got, want), f"differs at {torch.nonzero(got != want)[:5].tolist()}"
+
+
+def test_epilogue_kernel_wrapper_takes_no_cpu_tensor():
+    """The wrapper launches the kernel or raises: CPU tensors do not fall
+    back to the twin (`epilogue.epilogue` takes the twin for them)."""
+    from saprobe_alac_tpu_torch.ops.epilogue import epilogue_kernel
+
+    words, mix, shift_base, ns, fields = _epilogue_inputs(2, 64, 5)
+    with pytest.raises(ValueError, match="device cpu"):
+        epilogue_kernel(mix, None, *fields, C=2, depth=16)
