@@ -62,7 +62,9 @@ allocation would otherwise fail.
 Tracing: while a torch.profiler session records, `run` records an
 ``alac.program.dispatch`` span (the lookup, the wait on the previous
 clones, the eager run, capture or replay, named in its ``ran`` attribute,
-the clones and the settling) and, inside it, an ``alac.program.fill``
+the clones and the settling) and, inside it, an ``alac.program.wait`` span
+around the taking of the program's lock (the time another caller of the
+same key holds it: 0 for a single caller) and an ``alac.program.fill``
 span around the copy of the sources into the program's inputs, whose
 ``bytes`` attribute counts what it copied from the host (utils/profiling.py).
 The counters (`counts`) add those bytes up as ``upload_bytes``, whether or
@@ -86,7 +88,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils.profiling import DISPATCH, FILL, span
+from ..utils.profiling import DISPATCH, FILL, WAIT, span
 
 #: Bytes of programs (static inputs and graph pools) the cache keeps
 #: resident a device; None: a quarter of the card's total memory, read at
@@ -105,10 +107,13 @@ MAX_KEYS = 1024
 #: trim copied from the downloaded rows, and padded packs into a pooled
 #: staging buffer and into a new one; then the corpus service's: files
 #: yielded, batches it dispatched, those of them under its batch size, and
-#: decoders it made (one a config group).
+#: decoders it made (one a config group); then the streaming facade's:
+#: decoders opened, windows dispatched and dispatched windows dropped
+#: unread (by a seek, or with their decoder).
 _COUNTERS = ("programs", "eager", "captures", "replays", "evictions", "upload_bytes", "calls",
              "packets", "fallback_packets", "wide_retries", "trim_bytes", "staging_reuses",
-             "staging_allocs", "files", "service_batches", "partial_batches", "groups")
+             "staging_allocs", "files", "service_batches", "partial_batches", "groups",
+             "decoder_opens", "decoder_windows", "prefetch_dropped")
 
 _lock = threading.Lock()
 #: Every device's programs by key, least recently used first.
@@ -289,11 +294,15 @@ def run(device, kind: str, statics: tuple, shape: tuple,
                     _counter(key[0])["programs"] += 1
                 else:
                     _programs.move_to_end(key)
-            with prog.lock:
+            with span(WAIT):
+                prog.lock.acquire()
+            try:
                 if prog.released:  # evicted since the lookup: look it up again
                     continue
                 out, ran = prog.run(sources)
                 uploaded = prog.uploaded
+            finally:
+                prog.lock.release()
             _settle(prog, ran, uploaded)
             if s.recording:
                 s.set(kind=kind, ran=ran)

@@ -8,9 +8,12 @@ read from them (`stage_timer`, `profile_batch_decode`): where the host
 holds the card back.
 
 A span records only while a torch.profiler session is recording in the
-process; otherwise it costs one check.  Recorded spans are named
-``alac.<layer>.<stage>`` (the batch, program and service layers' names are the
-constants below, used at every site that records one), enter
+process, in whichever thread the span is (the profiler's own
+`_profiler_enabled` holds only in the thread that started the session, so
+the check reads the process-wide flag the profiler sets); otherwise it
+costs one check.  Recorded spans are named
+``alac.<layer>.<stage>`` (the facade, batch, program and service layers' names
+are the constants below, used at every site that records one), enter
 `record_function` under their name,
 so a Chrome trace shows them beside the card's work, and are kept in
 memory, the newest `RING` of them, with their times on the profiler's clock
@@ -35,6 +38,9 @@ SUBMIT, FINISH = "alac.batch.submit", "alac.batch.finish"
 #: program's inputs, the rest of `program.run`, the readbacks and the
 #: pinned copy, the ``bytes``; and the host decode of error lanes.
 PACK, FILL, DISPATCH = "alac.batch.pack", "alac.program.fill", "alac.program.dispatch"
+#: The wait for a program's lock inside ``alac.program.dispatch``: another
+#: caller's fill and replay of the same key.
+WAIT = "alac.program.wait"
 DOWNLOAD, TRIM, FALLBACK = "alac.batch.download", "alac.batch.trim", "alac.batch.fallback"
 #: The host stages of one batch call, in order, each recorded once a call
 #: (`stage_timer`); `FALLBACK` joins them in a call with error lanes.
@@ -43,6 +49,12 @@ STAGES = (PACK, FILL, DISPATCH, DOWNLOAD, TRIM)
 #: call's spans: a file's demux and packet reads, a completed file's join,
 #: and the tail flush's taking of the partial batches.
 DEMUX, JOIN, FLUSH = "alac.service.demux", "alac.service.join", "alac.service.flush"
+#: The streaming facade's (decode.py `Decoder`): the constructor's demux, a
+#: seek (`seek_exact`'s skip read inside it), a read, the reads of a
+#: window's packets from the container (inside a read or a seek, beside the
+#: batch calls), and a decoder let go with a dispatched window.
+OPEN, SEEK, READ = "alac.decoder.open", "alac.decoder.seek", "alac.decoder.read"
+PACKETS, CLOSE = "alac.decoder.packets", "alac.decoder.close"
 #: The most spans kept; older ones are dropped.
 RING = 1 << 20
 
@@ -136,7 +148,9 @@ class PhaseTimer:
         return "\n".join(lines)
 
 
-_profiling = torch._C._autograd._profiler_enabled
+#: The module whose ``_is_profiler_enabled`` torch.profiler sets while a
+#: session records: one flag for every thread.
+_session = torch.autograd.profiler
 _ring: deque = deque(maxlen=RING)
 _ids = itertools.count(1)
 _local = threading.local()
@@ -214,7 +228,7 @@ def span(name: str, call: int | None = None, **attrs):
     batch call it belongs to, for a span that closes a call opened
     elsewhere (`finish_async` takes its submit's); by default its
     parent's, or a new call's at the top of a thread."""
-    if not _profiling():
+    if not _session._is_profiler_enabled:
         return _OFF
     return Span(name, call, attrs)
 

@@ -144,6 +144,13 @@ class TurnLock:
             self._held = False
             self._cv.notify_all()
 
+    def acquire(self):
+        self.__enter__()
+        return True
+
+    def release(self):
+        self.__exit__()
+
     def wait_until(self, names, timeout=60):
         with self._cv:
             return self._cv.wait_for(lambda: self.waiting >= set(names), timeout)

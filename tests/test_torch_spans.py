@@ -3,7 +3,8 @@ batch and program layers (ops/program.py `counts`), on the CPU.
 
 Without a profiler a span records nothing and enters no `record_function`.
 Under `torch.profiler.profile(activities=[CPU])` a batch call records the
-tree ``alac.batch.submit`` (pack, program dispatch holding the fill) and
+tree ``alac.batch.submit`` (pack, program dispatch holding the wait for
+the program's lock and the fill) and
 ``alac.batch.finish`` (download, the host fallback where there are error
 lanes, trim), one ``call`` id a submit/finish pair, on the profiler's clock.
 """
@@ -25,7 +26,7 @@ from saprobe_alac_tpu_torch.utils import profiling
 F = 64
 SUBMIT, FINISH = profiling.SUBMIT, profiling.FINISH
 #: Every name the batch and program layers record: the module's constants.
-NAMES = {SUBMIT, FINISH, profiling.FALLBACK, *profiling.STAGES}
+NAMES = {SUBMIT, FINISH, profiling.FALLBACK, profiling.WAIT, *profiling.STAGES}
 
 
 def _config(depth=16, channels=2):
@@ -99,6 +100,7 @@ def test_without_a_profiler_nothing_is_recorded(monkeypatch):
 
 
 _PADDED = [(None, SUBMIT), (SUBMIT, "alac.batch.pack"), (SUBMIT, "alac.program.dispatch"),
+           ("alac.program.dispatch", "alac.program.wait"),
            ("alac.program.dispatch", "alac.program.fill"), (None, FINISH),
            (FINISH, "alac.batch.download"), (FINISH, "alac.batch.trim")]
 
@@ -106,9 +108,9 @@ _PADDED = [(None, SUBMIT), (SUBMIT, "alac.batch.pack"), (SUBMIT, "alac.program.d
 @pytest.mark.parametrize("channels", [2, 8])
 def test_a_call_records_its_tree(channels):
     """Stereo and 7.1 (five elements a packet): one submit and one finish
-    of one call id, the pack, the program's dispatch holding its fill, the
-    download and the trim; one span a stage, never one a packet or an
-    element."""
+    of one call id, the pack, the program's dispatch holding the wait for
+    its lock and its fill, the download and the trim; one span a stage,
+    never one a packet or an element."""
     cfg = _config(channels=channels)
     pk = _packets(cfg, 5, seed=2)
     dec = TorchBatchDecoder(cfg, "cpu")
@@ -164,7 +166,7 @@ def test_sharded_call_nests_each_shards_spans():
 
 def test_a_wide_batch_retries_inside_its_finish():
     """Order-12 packets take the 32-tap retry: its submit (pack, dispatch,
-    fill) nests in the finish's download, in the same call, and
+    wait, fill) nests in the finish's download, in the same call, and
     ``wide_retries`` counts it."""
     cfg = _config(channels=1)
     pk = _packets(cfg, 3, seed=6, order=12)
@@ -175,9 +177,10 @@ def test_a_wide_batch_retries_inside_its_finish():
     assert out == want
     _check_nesting(rec)
     assert len({s.call for s in rec}) == 1
-    assert _tree(rec) == _PADDED[:5] + [(FINISH, "alac.batch.download"),
+    assert _tree(rec) == _PADDED[:6] + [(FINISH, "alac.batch.download"),
                                         ("alac.batch.download", SUBMIT)] + [
         (SUBMIT, "alac.batch.pack"), (SUBMIT, "alac.program.dispatch"),
+        ("alac.program.dispatch", "alac.program.wait"),
         ("alac.program.dispatch", "alac.program.fill"), (FINISH, "alac.batch.trim")]
     assert [s.attrs["taps"] for s in rec if s.name == SUBMIT] == [9, 32]
     c = program.counts("cpu")
