@@ -106,14 +106,15 @@ MAX_KEYS = 1024
 #: their packets, packets decoded on the host, 32-tap retries, bytes the
 #: trim copied from the downloaded rows, and padded packs into a pooled
 #: staging buffer and into a new one; then the corpus service's: files
-#: yielded, batches it dispatched, those of them under its batch size, and
-#: decoders it made (one a config group); then the streaming facade's:
+#: yielded, batches it dispatched, those of them under its batch size,
+#: decoders it made (one a config group) and its reads of the containers;
+#: then the streaming facade's:
 #: decoders opened, windows dispatched and dispatched windows dropped
 #: unread (by a seek, or with their decoder).
 _COUNTERS = ("programs", "eager", "captures", "replays", "evictions", "upload_bytes", "calls",
              "packets", "fallback_packets", "wide_retries", "trim_bytes", "staging_reuses",
              "staging_allocs", "files", "service_batches", "partial_batches", "groups",
-             "decoder_opens", "decoder_windows", "prefetch_dropped")
+             "service_reads", "decoder_opens", "decoder_windows", "prefetch_dropped")
 
 _lock = threading.Lock()
 #: Every device's programs by key, least recently used first.

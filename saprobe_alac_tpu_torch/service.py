@@ -14,6 +14,11 @@ group, ``inflight`` dispatched batches, and the decoded PCM of files whose
 packets are still in flight.  RAM is O(batch window + largest single file),
 whatever the corpus size, and the staging of the next batch overlaps the
 card's work on the previous ones through ``BatchDecoder.decode_async``.
+A file's packets are read from its container in runs: one read a stretch of
+at most `READ_RUN_BYTES` that holds packets in table order, into one buffer
+of that size made once a call and reused for every file, then each packet
+copied out of it as its own ``bytes``.  That buffer is the call's only
+addition to the bound above; no file-sized copy of the container is made.
 ``backend`` is the `BatchDecoder` device: ``"cuda"`` (default), ``"cpu"``,
 ``"native"`` or ``"scalar"``.
 """
@@ -33,6 +38,10 @@ from .formats import PCMFormat
 from .ops import program
 from .utils.pcmconv import pcm_bytes_to_array
 from .utils.profiling import DEMUX, FLUSH, JOIN, span
+
+#: The most bytes one read of a file's packets spans: packets that follow
+#: each other in the container are read together while their run fits.
+READ_RUN_BYTES = 8 << 20
 
 
 @dataclass
@@ -88,15 +97,17 @@ def iter_decode_corpus(
 
     Under a torch.profiler session it records, beside the batch calls' own
     spans and never around them, ``alac.service.demux`` a file (the demux
-    and its packet reads; attributes ``packets``, ``bytes``),
+    and its packet reads; attributes ``packets``, ``bytes``, ``reads``),
     ``alac.service.join`` a completed file (attribute ``bytes``) and one
     ``alac.service.flush`` at the tail (taking the partial batches;
     attribute ``batches``).  It counts ``files``, ``service_batches``,
-    ``partial_batches`` and ``groups`` in `program.counts` (the host
+    ``partial_batches``, ``groups`` and ``service_reads`` (the container's
+    read calls) in `program.counts` (the host
     backends' under ``"cpu"``), whether or not a profiler records.
     """
     groups: dict[PacketConfig, _Group] = {}
     counted = "cpu" if backend in HOST_BACKENDS else backend
+    run_buf = bytearray(READ_RUN_BYTES)
 
     def finish_oldest(g: _Group):
         handle, pkts, states = g.inflight.popleft()
@@ -140,9 +151,9 @@ def iter_decode_corpus(
             # batch call runs inside the span.
             with span(DEMUX) as s:
                 config, samples = demux_stream(reader)
-                packets = _read_packets(reader, name, samples)
+                packets, reads = _read_packets(reader, name, samples, run_buf)
                 if s.recording:
-                    s.set(packets=len(packets), bytes=sum(map(len, packets)))
+                    s.set(packets=len(packets), bytes=sum(map(len, packets)), reads=reads)
         finally:
             if not hasattr(src, "read"):
                 reader.close()
@@ -156,6 +167,7 @@ def iter_decode_corpus(
             groups[config] = _Group(BatchDecoder(config, backend))
             program.add_counts(counted, groups=1)
         g = groups[config]
+        program.add_counts(counted, service_reads=reads)
         if not packets:
             yield joined(fs)
             continue
@@ -186,16 +198,49 @@ def iter_decode_corpus(
             yield joined(d)
 
 
-def _read_packets(reader: BinaryIO, name: str, samples) -> list[bytes]:
-    """Each packet of the sample table, read from the container."""
-    packets = []
-    for info in samples:
-        reader.seek(info.offset)
-        data = reader.read(info.size)
-        if len(data) < info.size:
-            raise EOFError(f"{name}: short packet read")
-        packets.append(data)
-    return packets
+def _read_packets(reader: BinaryIO, name: str, samples,
+                  buf: bytearray) -> tuple[list[bytes], int]:
+    """Each packet of the sample table, read from the container, and the
+    read calls made.  Packets are read in runs, in table order: a run grows
+    while the next packet starts at or after its end and the run, from its
+    first byte to that packet's end, fits in ``buf`` (another track's bytes
+    between them are read and skipped).  A run is one seek and one
+    ``readinto`` of ``buf``, each packet then copied out as its own
+    ``bytes``; a packet larger than ``buf``, or a reader without
+    ``readinto``, is read with ``read``."""
+    packets, reads, n = [], 0, len(samples)
+    view = memoryview(buf)
+    readinto = getattr(reader, "readinto", None)
+    i = 0
+    while i < n:
+        lo = samples[i].offset
+        hi = lo + samples[i].size
+        j = i + 1
+        while j < n:
+            at, end = samples[j].offset, samples[j].offset + samples[j].size
+            if at < hi or end - lo > len(buf):
+                break
+            hi, j = end, j + 1
+        reader.seek(lo)
+        if readinto is None or hi - lo > len(buf):
+            src = memoryview(reader.read(hi - lo))
+            got = len(src)
+            reads += 1
+        else:
+            src, got = view, 0
+            while got < hi - lo:
+                k = readinto(view[got : hi - lo])
+                reads += 1
+                if not k:
+                    break
+                got += k
+        for info in samples[i:j]:
+            at = info.offset - lo
+            if at + info.size > got:
+                raise EOFError(f"{name}: short packet read")
+            packets.append(bytes(src[at : at + info.size]))
+        i = j
+    return packets, reads
 
 
 def decode_corpus(
