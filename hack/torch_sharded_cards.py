@@ -11,8 +11,11 @@ bytes must equal the source and the one-card decoder's, with each path
 kernel launched once a shard and every shard's output on its own card; then
 both are timed by the host clock (median of 5 warm runs); then one more
 sharded call, a replay of each shard's decode program on its card, must give
-the same bytes.  Prints a JSON line per batch and OK; raises on any
-difference.
+the same bytes.  Then the four-card cell's shape: 2,048 stereo packets a card
+over every card in one call, against one card's call of 2,048, timed the
+same way; ``scaling`` is the sharded call's packets a second over one
+card's.
+Prints a JSON line per batch and OK; raises on any difference.
 """
 
 from __future__ import annotations
@@ -80,6 +83,17 @@ def main() -> int:
         if res["launches_warm"]["replay"] != n:
             raise AssertionError(f"{label}: warm launches {res['launches_warm']}, want {n} replays")
         print(label, json.dumps(res), flush=True)
+    n = torch.cuda.device_count()
+    bd, one = port.BatchDecoder(cfg), TorchBatchDecoder(cfg, "cuda:0")
+    big = pkts * n
+    out = bd.decode_packets(big)
+    for r in range(n):
+        cs.check_decode(out[r * n_pk : (r + 1) * n_pk], pcm, 16)
+    sharded = cs.summary(cs.host_times(lambda: bd.decode_packets(big)))
+    single = cs.summary(cs.host_times(lambda: one.decode_packets(pkts)))
+    res = {"cards": n, "packets": len(big), "sharded_s": sharded, "one_card_s": single,
+           "scaling": n * single["median"] / sharded["median"]}
+    print(f"16-bit stereo, {n_pk} a card", json.dumps(res), flush=True)
     print("OK")
     return 0
 
